@@ -1,7 +1,7 @@
-"""Experiment configuration for the port's generation slice
+"""Experiment configuration for the port's generation and training slices
 (JAX counterpart: ``infodiffusion_tpu/config.py``).
 
-The fields the ported slice reads, with the JAX ``Config``'s names and
+The fields the ported slices read, with the JAX ``Config``'s names and
 defaults (the reference CLI flags), and the same per-dataset override
 table. The port imports nothing of the JAX package, so this is its own
 dataclass; ``tests/test_torch_ops.py`` holds its fields, defaults and
@@ -15,6 +15,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 MODELS = ("diff", "vae", "vanilla")
+PRIORS = ("regular", "10mix", "roll")
 DATASETS = ("fmnist", "mnist", "celeba", "cifar10", "dsprites", "chairs", "ffhq")
 
 # dataset -> (input_channels, unets_channels, encoder_channels, input_size)
@@ -32,7 +33,15 @@ DATASET_CONFIG = {
 @dataclasses.dataclass
 class Config:
     model: str = "diff"  # {diff, vae, vanilla}
+    prior: str = "regular"  # {regular, 10mix, roll}
+    kld_weight: float = 0.0
+    mmd_weight: float = 0.1
+    use_C: bool = False
+    C_max: float = 25.0
     dataset: str = "mnist"
+    epochs: int = 20
+    batch_size: int = 64
+    learning_rate: float = 1e-4
     deterministic: bool = False
     input_channels: int = 1
     unets_channels: int = 64
@@ -44,10 +53,16 @@ class Config:
     diffusion_steps: int = 1000
     # sampler steps; None => the full T grid
     sampling_steps: Optional[int] = None
+    # bf16 activations in the backbone (schedule math stays f32)
+    bf16: bool = False
+    # EMA of the parameters (0 = off)
+    ema_decay: float = 0.0
 
     def __post_init__(self):
         if self.model not in MODELS:
             raise ValueError(f"model must be one of {MODELS}, got {self.model!r}")
+        if self.prior not in PRIORS:
+            raise ValueError(f"prior must be one of {PRIORS}, got {self.prior!r}")
         if self.dataset not in DATASETS:
             raise ValueError(
                 f"dataset must be one of {DATASETS}, got {self.dataset!r}"

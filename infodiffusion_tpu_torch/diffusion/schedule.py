@@ -46,6 +46,13 @@ def _bcast(coef: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return coef.reshape(coef.shape + (1,) * (like.ndim - coef.ndim))
 
 
+def q_sample(sched: Schedule, x0, t, eps):
+    """Forward noising ``sqrt(ab_t) x0 + sqrt(1 - ab_t) eps``, broadcast
+    over image [B, H, W, C] and latent [B, d] alike."""
+    ab = _bcast(sched.alpha_bars[t], x0)
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * eps
+
+
 def predict_x0_from_eps(sched: Schedule, x, idx, eps):
     """The reference's x0 estimate, from ``alpha_prev_bars[idx]``."""
     apb = _bcast(sched.alpha_prev_bars[idx], x)

@@ -34,11 +34,10 @@ def _convert(name: str, value) -> tuple:
                      f"{arr.shape}")
 
 
-def from_jax_params(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
-    """Fill ``module``'s parameters from ``tree`` (nested mappings of
-    arrays, e.g. a Flax ``variables['params']`` subtree), with
-    ``load_state_dict(strict=True)``: every parameter on both sides must
-    match by name and shape. Returns ``module``."""
+def to_state_dict(tree: Mapping) -> dict:
+    """The port's ``state_dict`` names and layouts for ``tree`` (nested
+    mappings of arrays, e.g. a Flax ``variables['params']`` subtree or a
+    gradient tree of the same shape), as f32 tensors."""
     state = {}
 
     def walk(prefix: str, node: Mapping) -> None:
@@ -50,5 +49,12 @@ def from_jax_params(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
                 state[prefix + name] = torch.tensor(arr)
 
     walk("", tree)
-    module.load_state_dict(state, strict=True)
+    return state
+
+
+def from_jax_params(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
+    """Fill ``module``'s parameters from ``tree`` with
+    ``load_state_dict(strict=True)``: every parameter on both sides must
+    match by name and shape. Returns ``module``."""
+    module.load_state_dict(to_state_dict(tree), strict=True)
     return module

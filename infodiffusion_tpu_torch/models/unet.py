@@ -1,19 +1,21 @@
-"""The aux-conditioned UNet (JAX counterpart: ``infodiffusion_tpu/models/unet.py``).
+"""The aux-conditioned UNet and the Encoder
+(JAX counterpart: ``infodiffusion_tpu/models/unet.py``).
 
 ``_UNetSkeleton`` reproduces the JAX skeleton's channel bookkeeping and
 module names: ``num_res_blocks`` down blocks per level with a skip pushed
 after each, a skip after each DownSample, two middle blocks (attention on
 the first), ``num_res_blocks + 1`` up blocks each popping a skip,
 attention at the levels in ``attn``; one running counter names
-``downblock_N`` / ``middleblock_N`` / ``upblock_N``. Only ``aux_mode='all'``
-(``AuxiliaryUNet``) is ported.
+``downblock_N`` / ``middleblock_N`` / ``upblock_N``. Two ``aux_mode``s
+are ported: ``'all'`` (AuxResBlocks, ``AuxiliaryUNet``) and ``'encoder'``
+(EncoderResBlocks, ``Encoder``).
 
 Public layout is NHWC; inside, activations are NCHW in ``channels_last``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +25,7 @@ from infodiffusion_tpu_torch.nn.blocks import (
     AuxResBlock,
     Conv3,
     DownSample,
+    EncoderResBlock,
     UpSample,
     _GNParams,
 )
@@ -33,14 +36,20 @@ TAIL_GAIN = 1e-5  # the tail conv's xavier gain
 
 
 class _UNetSkeleton(nn.Module):
-    """Down/middle/up skeleton of AuxResBlocks, conditioned everywhere."""
+    """Down/middle/up skeleton: AuxResBlocks conditioned everywhere
+    (``aux_mode='all'``) or unconditioned EncoderResBlocks
+    (``aux_mode='encoder'``)."""
 
     def __init__(self, ch: int, ch_mult: Tuple[int, ...], out_ch: int,
-                 emb_dim: int, attn: Tuple[int, ...] = (2,),
-                 num_res_blocks: int = 2, dtype: torch.dtype = torch.float32):
+                 emb_dim: int = 0, attn: Tuple[int, ...] = (2,),
+                 num_res_blocks: int = 2, dtype: torch.dtype = torch.float32,
+                 aux_mode: str = "all", in_ch: Optional[int] = None):
         super().__init__()
         if not all(i < len(ch_mult) for i in attn):
             raise ValueError(f"attn levels {attn} out of range for {ch_mult}")
+        if aux_mode not in ("all", "encoder"):
+            raise ValueError(f"aux_mode {aux_mode!r} is not ported")
+        self.aux_mode = aux_mode
         self._plan = []  # (kind, module name) in execution order
         n = 0
 
@@ -48,12 +57,13 @@ class _UNetSkeleton(nn.Module):
             nonlocal n
             name = f"{kind}block_{n}"
             n += 1
-            self.add_module(
-                name, AuxResBlock(in_c, out_c, emb_dim, use_attn, dtype)
-            )
+            self.add_module(name, (
+                AuxResBlock(in_c, out_c, emb_dim, use_attn, dtype)
+                if aux_mode == "all"
+                else EncoderResBlock(in_c, out_c, use_attn, dtype)))
             self._plan.append((kind, name))
 
-        self.head = Conv3(out_ch, ch, dtype)
+        self.head = Conv3(in_ch or out_ch, ch, dtype)
         skips = [ch]
         now = ch
         for i, mult in enumerate(ch_mult):
@@ -77,9 +87,13 @@ class _UNetSkeleton(nn.Module):
         self.tail_norm = _GNParams(now)
         self.tail_conv = Conv3(now, out_ch, dtype, gain=TAIL_GAIN)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                aemb: torch.Tensor) -> torch.Tensor:
-        """x: NCHW (``channels_last``) -> NCHW."""
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                aemb: Optional[torch.Tensor] = None, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: NCHW (``channels_last``) -> NCHW. ``temb``/``aemb`` condition
+        the AuxResBlocks (unused by the Encoder's blocks)."""
+        cond = (temb, aemb) if self.aux_mode == "all" else ()
         h = self.head(x)
         hs = [h]
         for kind, name in self._plan:
@@ -88,12 +102,12 @@ class _UNetSkeleton(nn.Module):
                 h = mod(h)
                 if name.startswith("down"):
                     hs.append(h)
-            elif kind == "up":
-                h = mod(torch.cat([h, hs.pop()], dim=1), temb, aemb)
-            else:
-                h = mod(h, temb, aemb)
-                if kind == "down":
-                    hs.append(h)
+                continue
+            if kind == "up":
+                h = torch.cat([h, hs.pop()], dim=1)
+            h = mod(h, *cond, deterministic, generator)
+            if kind == "down":
+                hs.append(h)
         return self.tail_conv(F.silu(self.tail_norm(h)))
 
 
@@ -111,11 +125,52 @@ class AuxiliaryUNet(nn.Module):
         self.unet = _UNetSkeleton(ch, ch_mult, out_ch, tdim, attn,
                                   num_res_blocks, dtype)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                a: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, a: torch.Tensor, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: NHWC [B, H, W, C]; t: int [B]; a: [B, a_dim] -> NHWC eps."""
         temb = self.time_embedding(t)
         aemb = self.fc_a(a)
         # an NHWC tensor permuted to NCHW is channels_last: no copy
-        h = self.unet(x.permute(0, 3, 1, 2), temb, aemb)
+        h = self.unet(x.permute(0, 3, 1, 2), temb, aemb,
+                      deterministic=deterministic, generator=generator)
         return h.permute(0, 2, 3, 1)
+
+
+class Encoder(nn.Module):
+    """Full-UNet encoder -> 1-channel tail -> flatten -> ``fc_a`` ->
+    (``fc_mu``, ``fc_var``), with the reparametrised draw inside forward
+    like the reference. Returns (a, a_q, mu, log_var); the deterministic
+    ``a`` is the pre-mu projection. ``reparam_eps`` injects the standard
+    normal draw; otherwise ``generator`` makes it."""
+
+    def __init__(self, a_dim: int, shape: Tuple[int, int, int], ch: int = 64,
+                 ch_mult: Tuple[int, ...] = (1, 2, 4, 8, 8),
+                 attn: Tuple[int, ...] = (2,), num_res_blocks: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c, h, w = shape
+        self.unet = _UNetSkeleton(ch, ch_mult, 1, attn=attn,
+                                  num_res_blocks=num_res_blocks, dtype=dtype,
+                                  aux_mode="encoder", in_ch=c)
+        # the 1-channel tail flattened: [B, H * W]
+        self.fc_a = Dense(h * w, a_dim, dtype)
+        self.fc_mu = Dense(a_dim, a_dim, dtype)
+        self.fc_var = Dense(a_dim, a_dim, dtype)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                sample: bool = True, reparam_eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """x: NHWC [B, H, W, C]."""
+        h = self.unet(x.permute(0, 3, 1, 2), deterministic=deterministic,
+                      generator=generator)
+        a = self.fc_a(h.reshape(h.shape[0], -1))
+        mu = self.fc_mu(a)
+        log_var = self.fc_var(a)
+        if not sample:
+            return a, mu, mu, log_var
+        if reparam_eps is None:
+            reparam_eps = torch.randn(mu.shape, generator=generator,
+                                      device=mu.device, dtype=mu.dtype)
+        a_q = mu + reparam_eps.to(mu.dtype) * torch.exp(0.5 * log_var)
+        return a, a_q, mu, log_var

@@ -6,10 +6,12 @@ format, so cuDNN's convs run NHWC-native and the NHWC view the norm and
 attention kernels read is free. The AdaGN chain (GroupNorm, then one or
 two FiLMs) is ``ops.norm.adagn``, kernel K1 on the card.
 
-Only the generation path is ported: ``AuxResBlock``, not ``ResBlock`` or
-``EncoderResBlock``; no dropout (inference); the skip concat is a plain
-``torch.cat`` in the caller (the JAX package's concat-free piece forms are
-XLA fusion structure with the same math and param tree).
+Ported: ``AuxResBlock`` (the backbone) and ``EncoderResBlock`` (the
+Encoder), not ``ResBlock``. Dropout follows Flax ``nn.Dropout`` and is off
+unless a block is called with ``deterministic=False`` and an explicit
+``torch.Generator``. The skip concat is a plain ``torch.cat`` in the
+caller (the JAX package's concat-free piece forms are XLA fusion structure
+with the same math and param tree).
 """
 
 from __future__ import annotations
@@ -25,6 +27,23 @@ from infodiffusion_tpu_torch.nn.layers import Dense, xavier_
 from infodiffusion_tpu_torch.ops.norm import adagn
 
 _GROUPS = 32
+DROPOUT = 0.1  # the rate of every ResBlock's dropout
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep with p = 1 - rate, kept values scaled by
+    1/p, the mask drawn from ``generator`` (never the global RNG)."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs an explicit "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    # empty_like keeps x's memory format (channels_last)
+    u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -88,8 +107,8 @@ class _GNParams(nn.Module):
 
 class AuxResBlock(nn.Module):
     """ResBlock with dual FiLM, time then aux latent: norm1-SiLU-conv1,
-    [norm2 + FiLM(t) + FiLM(a)]-SiLU-conv2, norm3-SiLU-conv3, + shortcut,
-    then optional attention."""
+    [norm2 + FiLM(t) + FiLM(a)]-SiLU-dropout-conv2,
+    norm3-SiLU-dropout-conv3, + shortcut, then optional attention."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
                  attn: bool = False, dtype: torch.dtype = torch.float32):
@@ -108,13 +127,40 @@ class AuxResBlock(nn.Module):
         self.attn = AttnBlock(out_ch, dtype) if attn else None
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                aemb: torch.Tensor) -> torch.Tensor:
+                aemb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))
         t_scale, t_shift = self.temb_proj(F.silu(temb)).chunk(2, dim=-1)
         a_scale, a_shift = self.aemb_proj(F.silu(aemb)).chunk(2, dim=-1)
         h = self.norm2(h, films=((t_scale, t_shift), (a_scale, a_shift)))
-        h = self.conv2(F.silu(h))
-        h = self.conv3(F.silu(self.norm3(h)))
+        h = self.conv2(dropout(F.silu(h), DROPOUT, deterministic, generator))
+        h = self.conv3(dropout(F.silu(self.norm3(h)), DROPOUT, deterministic,
+                               generator))
+        h = self.shortcut(x, h) if self.shortcut is not None else h + x
+        return self.attn(h) if self.attn is not None else h
+
+
+class EncoderResBlock(nn.Module):
+    """The unconditioned ResBlock of the Encoder: norm1-SiLU-conv1,
+    norm2-SiLU-dropout-conv2, + shortcut, then optional attention."""
+
+    def __init__(self, in_ch: int, out_ch: int, attn: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = _GNParams(in_ch)
+        self.conv1 = Conv3(in_ch, out_ch, dtype)
+        self.norm2 = _GNParams(out_ch)
+        self.conv2 = Conv3(out_ch, out_ch, dtype)
+        self.shortcut = (
+            ShortcutDense(in_ch, out_ch, dtype) if in_ch != out_ch else None
+        )
+        self.attn = AttnBlock(out_ch, dtype) if attn else None
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(dropout(F.silu(self.norm2(h)), DROPOUT, deterministic,
+                               generator))
         h = self.shortcut(x, h) if self.shortcut is not None else h + x
         return self.attn(h) if self.attn is not None else h
 

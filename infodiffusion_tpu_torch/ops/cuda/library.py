@@ -1,6 +1,7 @@
 """Build and load the hand-written kernels in ``infodiffusion_tpu_torch/csrc``.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, then links the objects into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds), which ``ctypes`` loads. The library lands in
 ``build/torch_kernels/<hash of the sources>/`` at the root of the checkout,
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -24,9 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -36,6 +38,9 @@ _SIGNATURES = {
     "infodiff_adagn": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "infodiff_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "infodiff_latent_traj": [_P] * 9 + [_I] * 6 + [_P],
+    "infodiff_adagn_bwd": [_P] * 13 + [_I] * 10 + [_P],
+    "infodiff_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "infodiff_flash_attention_bwd": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 # dtype codes of csrc/common.cuh
@@ -74,18 +79,7 @@ class Library:
         if not path.exists():
             path.parent.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (path.parent / "build.log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-                )
-            os.replace(tmp, path)
+            self._build(path)
             self.build_seconds = time.perf_counter() - t0
         self.build_log = (path.parent / "build.log").read_text()
         self.lib = ctypes.CDLL(str(path))
@@ -95,6 +89,44 @@ class Library:
             fn.restype = ctypes.c_int
         self.lib.infodiff_error_string.argtypes = [_I]
         self.lib.infodiff_error_string.restype = ctypes.c_char_p
+
+    @staticmethod
+    def _build(path: Path) -> None:
+        """Compile each source in its own nvcc process, in parallel, then
+        link; the log of every step goes to ``build.log``."""
+        tmpdir = Path(tempfile.mkdtemp(dir=path.parent))
+        try:
+            Library._compile_and_link(tmpdir, path)
+        finally:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+
+    @staticmethod
+    def _compile_and_link(tmpdir: Path, path: Path) -> None:
+        sources = sorted(CSRC.glob("*.cu"))
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(tmpdir / f"{p.stem}.o"),
+                 str(p)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p in sources
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(p.name, log) for p, proc, log in zip(sources, procs, logs)
+                  if proc.returncode != 0]
+        if not failed:
+            tmp = tmpdir / path.name
+            link = subprocess.run(
+                [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *[str(tmpdir / f"{p.stem}.o") for p in sources]],
+                capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(("link", logs[-1]))
+        (path.parent / "build.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name}:\n{log[-4000:]}" for name, log in failed))
+        os.replace(tmpdir / path.name, path)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,8 +5,8 @@
     pipe = InfoDiffusionPipeline(cfg, model)      # a port InfoDiff on its device
     imgs = pipe.generate(16, a=latents, steps=100)
 
-Only ``generate`` is ported; encoding, inversion and traversal need the
-Encoder, which comes with the training slice.
+Only ``generate`` is ported; encoding, inversion and traversal come with
+a later slice (the Encoder itself is ``models.unet.Encoder``).
 """
 
 from __future__ import annotations

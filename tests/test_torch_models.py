@@ -66,7 +66,9 @@ def test_infodiff_forward():
     a = rng.randn(2, 32).astype(np.float32)
     params = randomize(init_variables(jm, x, t, a)["params"], seed=4)
     want = jax.jit(jm.apply)({"params": params}, x, t, a)
-    pm = port(InfoDiff(**kw), {"backbone": params["backbone"]})
+    # a tree from init(x, t, a) holds only the backbone: load it there
+    pm = InfoDiff(**kw).eval()
+    port(pm.backbone, params["backbone"])
     got = pm(tensor(x), tensor(t).long(), tensor(a))
     assert_close(got, want, FORWARD_TOL, "InfoDiff")
 

@@ -1,6 +1,8 @@
-"""The torch port's embeddings, schedule, samplers' grid and the plain
-versions of kernels K1 (adagn) and K2 (attention), held against the JAX
-package on the same numpy inputs. Tolerances: tests/torch_parity.py."""
+"""The torch port's embeddings, schedule, samplers' grid, MMD and the plain
+versions of kernels K1 (adagn, forward and backward), K2 (attention) and
+K3a/K3b (flash attention forward and backward), held against the JAX
+package on the same numpy inputs. Tolerances: tests/torch_parity.py; bf16
+gradients within 2e-2 (one bf16 rounding of the cotangents)."""
 
 import functools
 import subprocess
@@ -16,6 +18,7 @@ from infodiffusion_tpu.diffusion import schedule as jsched
 from infodiffusion_tpu.diffusion.samplers import sample_loop as j_sample_loop
 from infodiffusion_tpu.diffusion.samplers import strided_ddim_loop as j_strided
 from infodiffusion_tpu.nn import embeddings as jemb
+from infodiffusion_tpu.ops import mmd as jmmd
 from infodiffusion_tpu.ops.attention import _attention_xla
 from infodiffusion_tpu.ops.norm import adagn as j_adagn
 from infodiffusion_tpu.ops.pallas import latent_traj as jtraj
@@ -27,9 +30,16 @@ from infodiffusion_tpu_torch.diffusion.samplers import (
 )
 from infodiffusion_tpu_torch.nn import embeddings as pemb
 from infodiffusion_tpu_torch.ops import attention as pattn
+from infodiffusion_tpu_torch.ops import mmd as pmmd
 from infodiffusion_tpu_torch.ops import norm as pnorm
+from infodiffusion_tpu_torch.ops.cuda import flash_attention as pflash
 from infodiffusion_tpu_torch.ops.cuda import latent_traj as ptraj
-from infodiffusion_tpu_torch.ops.cuda.adagn import adagn_cuda, adagn_reference
+from infodiffusion_tpu_torch.ops.cuda.adagn import (
+    adagn_bwd_cuda,
+    adagn_bwd_reference,
+    adagn_cuda,
+    adagn_reference,
+)
 from infodiffusion_tpu_torch.ops.cuda.attention import (
     attention_cuda,
     attention_reference,
@@ -297,3 +307,182 @@ def test_config_mirrors_jax_config():
         pcfg.Config(model="gan")
     with pytest.raises(ValueError, match="dataset"):
         pcfg.Config(dataset="imagenet")
+
+
+BF16_GRAD_TOL = 2e-2
+
+
+def test_q_sample_matches_jax():
+    js = jsched.make_schedule(1e-5, 1e-2, T)
+    ps = psched.make_schedule(1e-5, 1e-2, T)
+    rng = np.random.RandomState(30)
+    t = np.array([0, 1, 500, 999], np.int32)
+    for shape in ((4, 3, 5, 2), (4, 6)):  # image [B, H, W, C], latent [B, d]
+        x, eps = (rng.randn(*shape).astype(np.float32) for _ in range(2))
+        assert_close(psched.q_sample(ps, tensor(x), tensor(t).long(),
+                                     tensor(eps)),
+                     jsched.q_sample(js, x, t, eps), OP_TOL, "q_sample")
+
+
+@pytest.mark.parametrize("d", [2, 32])
+def test_compute_mmd_matches_jax(d):
+    rng = np.random.RandomState(d)
+    x = rng.randn(8, d).astype(np.float32)
+    y = (rng.randn(8, d) * 0.5 + 0.3).astype(np.float32)
+    for a, b in ((x, y), (x, x)):
+        assert_close(pmmd.compute_mmd(tensor(a), tensor(b)),
+                     jmmd.compute_mmd(a, b), OP_TOL, "compute_mmd")
+    assert_close(pmmd.compute_kernel(tensor(x), tensor(y)),
+                 jmmd.compute_kernel(x, y), OP_TOL, "compute_kernel")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [64, 192])
+@pytest.mark.parametrize("K", [0, 1, 2])
+def test_adagn_plain_backward_matches_jax_vjp(C, K, dtype):
+    x, gamma, beta, films = _adagn_inputs(C, K, seed=C + K)
+    dy = np.random.RandomState(7).randn(*x.shape).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    jx, jdy = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    jfilms = [tuple(jnp.asarray(t, jdt) for t in pair) for pair in films]
+    _, vjp = jax.vjp(lambda x_, g_, b_, f_: j_adagn(x_, 32, g_, b_, f_),
+                     jx, jnp.asarray(gamma), jnp.asarray(beta), jfilms)
+    want_x, want_g, want_b, want_f = vjp(jdy)
+
+    pdt = getattr(torch, dtype)
+    got_x, got_g, got_b, got_f = adagn_bwd_reference(
+        tensor(x).to(pdt), tensor(dy).to(pdt), 32, tensor(gamma),
+        tensor(beta), [tuple(tensor(t).to(pdt) for t in p) for p in films])
+    tol = OP_TOL if dtype == "float32" else BF16_GRAD_TOL
+    assert got_x.dtype == pdt and got_g.dtype == torch.float32
+    assert all(t.dtype == pdt for pair in got_f for t in pair)
+    for got, want, what in [(got_x, want_x, "dx"), (got_g, want_g, "dgamma"),
+                            (got_b, want_b, "dbeta")] + [
+            (g, w, f"dfilm{k}{i}") for k, (gp, wp) in
+            enumerate(zip(got_f, want_f)) for i, (g, w) in
+            enumerate(zip(gp, wp))]:
+        assert_close(got.float(), np.asarray(want, np.float32), tol, what)
+
+
+def test_adagn_function_grads_are_the_plain_backward():
+    """On the CPU the autograd.Function's backward is the explicit plain
+    backward, which agrees with autograd of the plain forward."""
+    x, gamma, beta, films = _adagn_inputs(64, 2, seed=3)
+    leaves = [tensor(x), tensor(gamma), tensor(beta)] + [
+        tensor(t) for pair in films for t in pair]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(0))
+    pairs = list(zip(leaves[3::2], leaves[4::2]))
+    got = torch.autograd.grad(pnorm.adagn(leaves[0], 32, leaves[1], leaves[2],
+                                          pairs), leaves, dy)
+    want = torch.autograd.grad(adagn_reference(leaves[0], 32, leaves[1],
+                                               leaves[2], pairs), leaves, dy)
+    for g, w in zip(got, want):
+        assert_close(g, w.numpy(), OP_TOL, "grad")
+
+
+def _qkvdo(B, N, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, N, 128).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_plain_matches_jax_flash(dtype):
+    from infodiffusion_tpu.ops.pallas.flash_attention import flash_attention
+
+    q, k, v, _ = _qkvdo(2, 256, seed=5)
+    jdt, pdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = flash_attention(*(jnp.asarray(t, jdt) for t in (q, k, v)),
+                           interpret=True)
+    got = attention_reference(*(tensor(t).to(pdt) for t in (q, k, v)))
+    tol = OP_TOL if dtype == "float32" else BF16_GRAD_TOL
+    assert_close(got.float(), np.asarray(want, np.float32), tol, "K3a")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_plain_matches_jax_bwd_kernel(dtype):
+    """K3b's plain version against the Pallas backward at N=256 with four
+    q tiles, so dk/dv accumulate across tiles."""
+    from infodiffusion_tpu.ops.pallas.flash_attention import _bwd_call
+
+    arrays = _qkvdo(2, 256, seed=6)
+    jdt, pdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = _bwd_call(*(jnp.asarray(t, jdt) for t in arrays), interpret=True,
+                     block_q=64)
+    got = pflash.flash_attention_bwd_reference(
+        *(tensor(t).to(pdt) for t in arrays))
+    tol = OP_TOL if dtype == "float32" else BF16_GRAD_TOL
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == pdt
+        assert_close(g.float(), np.asarray(w, np.float32), tol, what)
+
+
+def test_attention_function_grads_match_jax_autodiff():
+    """f32: the Function's backward (K3b's plain version) is the gradient
+    of the dense attention the JAX package differentiates."""
+    q, k, v, do = _qkvdo(2, 64, seed=8)
+    _, vjp = jax.vjp(_attention_xla, q, k, v)
+    want = vjp(do)
+    leaves = [tensor(t).requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(pattn.single_head_attention(*leaves), leaves,
+                              tensor(do))
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert_close(g, w, OP_TOL, what)
+
+
+def test_flash_route_threshold(monkeypatch):
+    """N >= flash_min_tokens() (default 512, the JAX env var) takes K3a."""
+    monkeypatch.delenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", raising=False)
+    assert pattn.flash_min_tokens() == 512
+    assert [pattn.attention_route(n) for n in (64, 256, 511, 512, 1024)] == [
+        "attention"] * 3 + ["flash"] * 2
+    monkeypatch.setenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", "64")
+    assert pattn.attention_route(64) == "flash"
+    assert pattn.attention_route(63) == "attention"
+
+
+def test_no_grad_saves_nothing_for_backward():
+    """Under no_grad or inference_mode the Functions build no graph and save
+    no tensor; with grad on they do."""
+    x, gamma, beta, films = _adagn_inputs(64, 2)
+    leaves = [tensor(x), tensor(gamma), tensor(beta)] + [
+        tensor(t) for pair in films for t in pair]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    q = torch.randn(2, 16, 128, requires_grad=True)
+
+    def run(ctx):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t) or t, lambda t: t), ctx:
+            y = pnorm.adagn(leaves[0], 32, leaves[1], leaves[2],
+                            list(zip(leaves[3::2], leaves[4::2])))
+            z = pattn.single_head_attention(q, q, q)
+        return y, z, saved
+
+    for ctx in (torch.no_grad(), torch.inference_mode()):
+        y, z, saved = run(ctx)
+        assert y.grad_fn is None and z.grad_fn is None and not saved
+    y, z, saved = run(torch.enable_grad())
+    assert y.grad_fn is not None and z.grad_fn is not None and saved
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(2, 16, 64)
+    c = torch.ones(64)
+    with pytest.raises(ValueError, match="CUDA"):
+        adagn_bwd_cuda(x, x, 32, c, c, (), torch.zeros(2, 1, 2, 64))
+    q = torch.zeros(2, 16, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        pflash.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        pflash.flash_attention_bwd_cuda(q, q, q, q)
+    before = (pflash.flash_attention_cuda.launches,
+              pflash.flash_attention_bwd_cuda.launches,
+              adagn_bwd_cuda.launches)
+    q.requires_grad_(True)
+    pattn.single_head_attention(q, q, q).sum().backward()
+    assert before == (pflash.flash_attention_cuda.launches,
+                      pflash.flash_attention_bwd_cuda.launches,
+                      adagn_bwd_cuda.launches)

@@ -70,7 +70,9 @@ def test_latent_prior_then_ddim_matches_jax():
         cfg, port(Diff(T=T, shape=(1, A_DIM, A_DIM)), p_lat))
     a_got = latent.sampling(xT=tensor(x_lat), noises=tensor(noises))
     assert_close(a_got, a_want, TRAJECTORY_TOL, "latents")
-    model = port(InfoDiff(**kw), {"backbone": p_img["backbone"]})
+    # a tree from init(x, t, a) holds only the backbone: load it there
+    model = InfoDiff(**kw).eval()
+    port(model.backbone, p_img["backbone"])
     img_got = InfoDiffusionPipeline(cfg, model).process.sampling(
         xT=tensor(x_img), a=a_got, num_steps=STEPS)
     assert_close(img_got, img_want, TRAJECTORY_TOL, "images")
