@@ -38,31 +38,61 @@ on the card. Phases, each printing one line or a few, any failure raising:
    injected draws, ``deterministic=True``: the loss and every gradient
    leaf, then every parameter after one optimizer step on each device
    from the same (the CPU's) gradients.
+9. int8 kernels: the chainless int8 conv (exact in s32), K7 v1 (relative
+   L2, max error, the int8 flips counted through the kernel) and v2
+   (bitwise v1) at every distinct quantized conv site of one flagship
+   forward at B=128, bf16, and K4's int8 weight stream at B=128 d=256
+   S=1000, each against its plain version with CUDA-event times, the
+   card's bound and, for the int8 conv, cuDNN's bf16 conv as a yardstick.
+10. the int8 slice, flagship, bf16, B=128:
+   ``LatentDiffusionProcess(turbo='int8').sampling`` then
+   ``DiffusionProcess(turbo='int8').sampling(num_steps=100)`` on the
+   default route, with ``INFODIFF_ENABLE_FUSED_QCONV=1`` (K7) and with
+   ``INFODIFF_QCONV_V2=1`` as well: latents/s, samples/s, the images'
+   relative L2 against the bf16 slice from the same xT and a, launches.
+11. card against CPU, int8: f32, B=2, the quant state calibrated once on
+   the CPU and carried across; latents T=1000 then DDIM-10 per route.
+
+``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
 The line before the last is one JSON object with each kernel's launches
-(summed over the counted runs of the main paths, and per path), error and
-bf16 times; the last is ``{"ok": true, "device": {...}}``. Imports
+(summed over the counted runs of the main paths, and per path), error,
+bf16 times, bound and library yardstick; the last is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from infodiffusion_tpu_torch.config import Config
-from infodiffusion_tpu_torch.diffusion.samplers import LatentDiffusionProcess
+from infodiffusion_tpu_torch.diffusion.samplers import (
+    DiffusionProcess,
+    LatentDiffusionProcess,
+    strided_ddim_loop,
+)
 from infodiffusion_tpu_torch.diffusion.schedule import make_schedule
 from infodiffusion_tpu_torch.models.wrappers import Diff, InfoDiff
 from infodiffusion_tpu_torch.nn.attention import _GN
-from infodiffusion_tpu_torch.nn.blocks import _GNParams
+from infodiffusion_tpu_torch.nn.blocks import (
+    Conv3,
+    PieceConv3,
+    _AffineChain,
+    _GNParams,
+)
+from infodiffusion_tpu_torch.ops import quant as Q
 from infodiffusion_tpu_torch.ops.cuda import latent_traj as K4
+from infodiffusion_tpu_torch.ops.cuda import qconv as K7
 from infodiffusion_tpu_torch.ops.cuda.adagn import (
     adagn_bwd_cuda,
     adagn_bwd_reference,
@@ -114,13 +144,39 @@ NOISE_FLOOR = 1e-4
 # K4 compounds the same over 1000 steps
 TOL = {"f32": 1e-4, "bf16": 2e-2, "traj_f32": 1e-4, "traj_bf16": 1e-2,
        "slice": 2e-3}
+# the int8 tier: the chainless conv is exact in s32; K7 against its plain
+# version differs only where an ulp of expf (card) against torch's sigmoid
+# lands a value on a .5 boundary and flips one int8 unit (relative L2 and
+# max abs over the output's max abs); K4's int8 stream as its bf16 one;
+# card against CPU by those flips, compounded over the steps
+TOL.update({"int8_conv": 0.0, "qconv_l2": 1e-4, "qconv_max": 1e-2,
+            "traj_int8": 1e-2, "slice_int8": 1e-2})
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the card's published peaks (H100 SXM, dense) and memory rate
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM = 3.35e12
+# DDIM steps of the int8 slice on every route (bench.py's headline)
+INT8_STEPS = 100
+INT8_ROUTES = {
+    "int8_default": {},
+    "int8_fused": {"INFODIFF_ENABLE_FUSED_QCONV": "1"},
+    "int8_fused_v2": {"INFODIFF_ENABLE_FUSED_QCONV": "1",
+                      "INFODIFF_QCONV_V2": "1"},
+}
+INT8_ROUTE_KERNELS = {
+    "int8_default": ("latent_traj_int8", "int8_conv", "adagn", "attention"),
+    "int8_fused": ("latent_traj_int8", "qconv", "int8_conv", "adagn",
+                   "attention"),
+    "int8_fused_v2": ("latent_traj_int8", "qconv_v2", "int8_conv", "adagn",
+                      "attention"),
+}
 
 KERNELS = {
     "adagn": dict(fn=adagn_cuda, route="cuda",
                   source="infodiffusion_tpu_torch/csrc/adagn.cu",
                   replaces="infodiffusion_tpu/ops/pallas/adagn.py:90"),
     "attention": dict(fn=attention_cuda, route="cuda",
+                      library="F.scaled_dot_product_attention",
                       source="infodiffusion_tpu_torch/csrc/attention.cu",
                       replaces="infodiffusion_tpu/ops/pallas/attention.py:49"),
     "latent_traj": dict(fn=K4.latent_trajectory_cuda, route="cuda",
@@ -133,13 +189,65 @@ KERNELS = {
                                "infodiffusion_tpu/ops/norm.py:293 (adagn)"),
     "flash_attention": dict(
         fn=flash_attention_cuda, route="cuda",
+        library="F.scaled_dot_product_attention",
         source="infodiffusion_tpu_torch/csrc/flash_attention.cu",
         replaces="infodiffusion_tpu/ops/pallas/flash_attention.py:274"),
     "flash_attention_bwd": dict(
         fn=flash_attention_bwd_cuda, route="cuda",
+        library="backward of F.scaled_dot_product_attention",
         source="infodiffusion_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="infodiffusion_tpu/ops/pallas/flash_attention.py:315"),
+    "qconv": dict(fn=K7.qconv_cuda, route="cuda",
+                  source="infodiffusion_tpu_torch/csrc/qconv.cu",
+                  replaces="infodiffusion_tpu/ops/pallas/qconv.py:244 "
+                           "(_kernel, pallas_call :499)"),
+    "qconv_v2": dict(fn=K7.qconv_v2_cuda, route="cuda",
+                     source="infodiffusion_tpu_torch/csrc/qconv.cu",
+                     replaces="infodiffusion_tpu/ops/pallas/qconv.py:337 "
+                              "(_kernel_v2, pallas_call :499)"),
+    "int8_conv": dict(fn=K7.int8_conv_cuda, route="cuda",
+                      library="F.conv2d in bf16 (cuDNN) at the same shape: "
+                              "no PyTorch call computes the int8 conv",
+                      source="infodiffusion_tpu_torch/csrc/qconv.cu",
+                      replaces="XLA int8 conv of "
+                               "infodiffusion_tpu/ops/quant.py:142 "
+                               "(int8_conv)"),
+    "latent_traj_int8": dict(
+        fn=K4.latent_trajectory_int8_cuda, route="cuda",
+        source="infodiffusion_tpu_torch/csrc/latent_traj.cu",
+        replaces="infodiffusion_tpu/ops/pallas/latent_traj.py:390 with "
+                 ":89 (quantize_packed_weights)"),
 }
+
+
+def reset_launches():
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+
+
+def read_launches():
+    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+
+
+class Bound:
+    """The least time the card could take for a set of calls: per call the
+    larger of its operations over the peak rate for their type and its
+    bytes (each input read once, each output written once) over the memory
+    rate, summed over the calls."""
+
+    def __init__(self):
+        self.ms = self.ops_ms = self.bytes_ms = 0.0
+
+    def add(self, ops, nbytes, rate):
+        o, b = ops / rate * 1e3, nbytes / HBM * 1e3
+        self.ms += max(o, b)
+        self.ops_ms += o
+        self.bytes_ms += b
+        return max(o, b)
+
+    @property
+    def by(self):
+        return "operations" if self.ops_ms >= self.bytes_ms else "bytes"
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -168,10 +276,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(kernel, plain, reps: int):
+def paired_ms(kernel, plain, reps: int, plain_reps=None):
     """Kernel and plain times taken in turns: plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (cuda_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    pr = plain_reps or reps
+    p1 = cuda_ms(plain, pr)
+    k1, k2 = cuda_ms(kernel, reps), cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, pr)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def sdpa_ms(q, k, v, reps):
+    """One PyTorch call computing K2's / K3a's function:
+    ``F.scaled_dot_product_attention`` (a yardstick; the port never calls
+    it)."""
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
+
+
+def sdpa_bwd_ms(q, k, v, do, reps):
+    """The backward of ``F.scaled_dot_product_attention``: K3b's yardstick."""
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                               retain_graph=True), reps)
 
 
 def init_weights_(model: torch.nn.Module, seed: int,
@@ -269,8 +395,10 @@ def adagn_sites(model, run):
         x = args[0]
         if isinstance(mod, _GN):  # NHWC
             hw, c = x.shape[1] * x.shape[2], x.shape[3]
-        else:                     # NCHW
-            hw, c = x.shape[2] * x.shape[3], x.shape[1]
+        else:                     # NCHW, or an up block's skip-concat pieces
+            pieces = x if isinstance(x, (tuple, list)) else [x]
+            hw = pieces[0].shape[2] * pieces[0].shape[3]
+            c = sum(p.shape[1] for p in pieces)
         sites.add((hw, c, len(kwargs.get("films", ()))))
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
@@ -287,7 +415,11 @@ def check_adagn(sites, device, reps, results):
     B = BATCH
     for tag, dtype in DTYPES.items():
         ms = plain_ms = 0.0
+        bnd = Bound()
+        e = torch.finfo(dtype).bits // 8
         for hw, c, k in sites:
+            bnd.add(8 * B * hw * c, (2 * B * hw * c + 2 * k * B * c) * e
+                    + 8 * c, PEAK["f32"])
             x = (torch.randn(B, hw, c, generator=g, device=device) * 2 + 0.5
                  ).to(dtype)
             gamma = 1 + 0.1 * torch.randn(c, generator=g, device=device)
@@ -306,17 +438,23 @@ def check_adagn(sites, device, reps, results):
                   f"{pm:.4f} ms")
             results.record("adagn", tag, abs_e, rel_e, TOL[tag])
         print(f"[K1 adagn] {tag}: all {len(sites)} sites, one call each: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        results.time("adagn", tag, ms, plain_ms)
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
+              f"ms ({bnd.by})")
+        results.time("adagn", tag, ms, plain_ms, bnd)
 
 
 def check_attention(device, reps, results):
     g = torch.Generator(device=device).manual_seed(2)
     for tag, dtype in DTYPES.items():
-        ms = plain_ms = 0.0
+        ms = plain_ms = lib_ms = 0.0
+        bnd = Bound()
+        e = torch.finfo(dtype).bits // 8
         for n in (256, 64):
+            bnd.add(4 * BATCH * n * n * 128, 4 * BATCH * n * 128 * e,
+                    PEAK[tag])
             q, k, v = (torch.randn(BATCH, n, 128, generator=g,
                                    device=device).to(dtype) for _ in range(3))
+            lib_ms += sdpa_ms(q, k, v, reps)
             got = attention_cuda(q, k, v)
             torch.cuda.synchronize()
             abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
@@ -327,7 +465,10 @@ def check_attention(device, reps, results):
                   f"err {rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
                   f"{pm:.4f} ms")
             results.record("attention", tag, abs_e, rel_e, TOL[tag])
-        results.time("attention", tag, ms, plain_ms)
+        print(f"[K2 attention] {tag}: N=256 and 64 once each {ms:.4f} ms, "
+              f"plain {plain_ms:.4f}, bound {bnd.ms:.4f} ({bnd.by}), "
+              f"F.scaled_dot_product_attention {lib_ms:.4f}")
+        results.time("attention", tag, ms, plain_ms, bnd, lib_ms)
 
 
 def check_latent_traj(lat_models, device, reps, results):
@@ -343,11 +484,25 @@ def check_latent_traj(lat_models, device, reps, results):
         abs_e, rel_e = rel_err(got, K4.latent_trajectory_reference(*args))
         km, pm = paired_ms(lambda: K4.latent_trajectory_cuda(*args),
                            lambda: K4.latent_trajectory_reference(*args), reps)
+        bnd = Bound()
+        bnd.add(*latent_traj_work(packed["W"]), PEAK[tag])
         print(f"[K4 latent_traj] {tag} weights, B={BATCH} d={A_DIM} "
               f"S={T}: rel err {rel_e:.2e} (abs {abs_e:.2e}); {km:.2f} ms "
-              f"vs plain {pm:.2f} ms")
+              f"vs plain {pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by})")
         results.record("latent_traj", tag, abs_e, rel_e, TOL["traj_" + tag])
-        results.time("latent_traj", tag, km, pm)
+        results.time("latent_traj", tag, km, pm, bnd)
+
+
+def latent_traj_work(W):
+    """(operations, bytes) of one K4 call at B=BATCH, d=A_DIM, S=T: layer 0
+    is [B, d] x [d, 4d], layers 1-8 [B, 5d] x [5d, 4d], layer 9
+    [B, 5d] x [5d, d]; it reads W (and Wsc), the per-step FiLM rows and
+    noise once."""
+    B, d, S, L = BATCH, A_DIM, T, W.shape[0]
+    ops = 2 * B * S * (4 * d * d + 8 * 20 * d * d + 5 * d * d)
+    nbytes = (W.numel() * W.element_size() + S * L * 4 * d * 4
+              + S * B * d * 4 + 2 * B * d * 4 + 4 * L * 4 * d * 4)
+    return ops, nbytes
 
 
 # ------------------------------------------------------- training phases
@@ -373,8 +528,12 @@ def check_adagn_bwd(sites_by_size, device, reps, results):
     for tag, dtype in DTYPES.items():
         ms = plain_ms = 0.0
         n = 0
+        bnd = Bound()
+        e = torch.finfo(dtype).bits // 8
         for size, (B, sites) in sites_by_size.items():
             for hw, c, k in sites:
+                bnd.add(20 * B * hw * c, 3 * B * hw * c * e
+                        + 4 * k * B * c * e + 16 * c, PEAK["f32"])
                 x = (torch.randn(B, hw, c, generator=g, device=device) * 2
                      + 0.5).to(dtype)
                 dy = torch.randn(B, hw, c, generator=g, device=device).to(dtype)
@@ -406,8 +565,9 @@ def check_adagn_bwd(sites_by_size, device, reps, results):
                       f"dfilms; {km:.4f} ms vs plain {pm:.4f} ms")
                 del x, dy, stats, got, want
         print(f"[K1 bwd] {tag}: all {n} training sites, one call each: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        results.time("adagn_bwd", tag, ms, plain_ms)
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
+              f"ms ({bnd.by})")
+        results.time("adagn_bwd", tag, ms, plain_ms, bnd)
 
 
 def check_flash(device, reps, results):
@@ -422,15 +582,25 @@ def check_flash(device, reps, results):
         results.record("flash_attention", tag, abs_e, rel_e, TOL[tag])
         km, pm = paired_ms(lambda: flash_attention_cuda(q, k, v),
                            lambda: attention_reference(q, k, v), reps)
-        results.time("flash_attention", tag, km, pm)
+        e = torch.finfo(dtype).bits // 8
+        bnd = Bound()
+        bnd.add(4 * B * N * N * 128, 4 * B * N * 128 * e, PEAK[tag])
+        lib_ms = sdpa_ms(q, k, v, reps)
+        results.time("flash_attention", tag, km, pm, bnd, lib_ms)
         gflop = 4 * B * N * N * 128 / 1e9
         print(f"[K3a flash fwd] {tag} B={B} N={N} C=128: rel err {rel_e:.2e} "
               f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms "
-              f"({gflop / km:.1f} TFLOP/s counting 4BN^2C)")
-        ms = plain_ms = 0.0
+              f"({gflop / km:.1f} TFLOP/s counting 4BN^2C), bound "
+              f"{bnd.ms:.4f} ms ({bnd.by}), F.scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms")
+        ms = plain_ms = lib_ms = 0.0
+        bnd = Bound()
         for B, N in ((64, 1024), (128, 256), (128, 64)):
             q, k, v, do = (torch.randn(B, N, 128, generator=g, device=device)
                            .to(dtype) for _ in range(4))
+            # recompute s, then dv, dp, dq, dk: 10 B N^2 C
+            bnd.add(10 * B * N * N * 128, 7 * B * N * 128 * e, PEAK[tag])
+            lib_ms += sdpa_bwd_ms(q, k, v, do, reps)
             got = flash_attention_bwd_cuda(q, k, v, do)
             torch.cuda.synchronize()
             want = flash_attention_bwd_reference(q, k, v, do)
@@ -446,7 +616,10 @@ def check_flash(device, reps, results):
             ms, plain_ms = ms + km, plain_ms + pm
             print(f"[K3b flash bwd] {tag} B={B} N={N} C=128: rel err "
                   f"{', '.join(errs)}; {km:.4f} ms vs plain {pm:.4f} ms")
-        results.time("flash_attention_bwd", tag, ms, plain_ms)
+        print(f"[K3b flash bwd] {tag}: the three shapes once each {ms:.4f} "
+              f"ms, plain {plain_ms:.4f}, bound {bnd.ms:.4f} ({bnd.by}), "
+              f"F.scaled_dot_product_attention backward {lib_ms:.4f}")
+        results.time("flash_attention_bwd", tag, ms, plain_ms, bnd, lib_ms)
 
 
 def leaf_errors(got: dict, want: dict):
@@ -573,6 +746,393 @@ def train_card_vs_cpu(device):
         raise AssertionError(f"train card vs CPU: {worst:.3e} over "
                              f"{TOL['slice']:.0e}")
 
+# ------------------------------------------------------- the int8 tier
+
+
+def qconv_sites(model, run):
+    """The distinct quantized convs one forward of ``model`` runs, as
+    ``(chainless, fused)``: chainless (H, W, C, Cout, stride) of each int8
+    conv's input (after the repeat; one per piece of an up block's first
+    conv), fused (H, W, piece channels, Cout) of each ResBlock conv, the
+    K7 sites."""
+    chainless, fused = set(), set()
+    handles = []
+    for name, mod in model.named_modules():
+        if not (isinstance(mod, Conv3) and mod.quantize):
+            continue
+
+        def hook(mod, args, resblock=bool(re.search(r"block_\d+\.conv\d$",
+                                                      name))):
+            _, c, h, w = args[0].shape
+            cout = mod.weight.shape[0]
+            splits = (list(args[1]) if len(args) > 1 and args[1] is not None
+                      else [c])
+            if isinstance(mod, PieceConv3):
+                for ci in splits:
+                    chainless.add((h, w, ci, cout, 1))
+            else:
+                chainless.add((h * mod.repeat, w * mod.repeat, c, cout,
+                               mod.stride))
+            if resblock:
+                fused.add((h, w, tuple(splits), cout))
+
+        handles.append(mod.register_forward_pre_hook(hook))
+    with torch.no_grad():
+        run()
+    for h in handles:
+        h.remove()
+    return sorted(chainless), sorted(fused)
+
+
+def check_int8_conv(sites, device, reps, results):
+    """The chainless int8 conv at every distinct site, B=BATCH: exact in
+    s32 against its plain version; times beside cuDNN's bf16 conv at the
+    same shape (no PyTorch call computes the int8 conv)."""
+    g = torch.Generator(device=device).manual_seed(7)
+    B = BATCH
+    ms = plain_ms = lib_ms = 0.0
+    bnd = Bound()
+    for h, w, c, cout, s in sites:
+        xq = torch.randint(-127, 128, (B, h, w, c), generator=g,
+                           device=device, dtype=torch.int8)
+        kq = torch.randint(-127, 128, (3, 3, c, cout), generator=g,
+                           device=device, dtype=torch.int8)
+        got = K7.int8_conv_cuda(xq, kq, s)
+        torch.cuda.synchronize()
+        want = Q.int8_conv_reference(xq, kq, s)
+        diff = float((got.long() - want.long()).abs().max().item())
+        results.record("int8_conv", f"{h}x{w} C{c}->{cout} s{s}", diff, diff,
+                       TOL["int8_conv"])
+        del got, want
+        km, pm = paired_ms(lambda: K7.int8_conv_cuda(xq, kq, s),
+                           lambda: Q.int8_conv_reference(xq, kq, s), reps, 1)
+        xb = torch.randn(B, c, h, w, generator=g, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn(cout, c, 3, 3, generator=g, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        lm = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=1), reps)
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        ops = 2 * B * ho * wo * 9 * c * cout
+        b_ms = bnd.add(ops, B * h * w * c + 9 * c * cout
+                       + 4 * B * ho * wo * cout, PEAK["int8"])
+        ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
+        print(f"[int8 conv] B={B} {h}x{w} C={c}->{cout} stride {s}: s32 max "
+              f"abs diff {diff:.0f}; {km:.4f} ms ({ops / km / 1e9:.1f} TOP/s) "
+              f"vs plain {pm:.4f} ms, bound {b_ms:.4f} ms, cuDNN bf16 conv "
+              f"{lm:.4f} ms")
+        del xq, kq, xb, wb
+    print(f"[int8 conv] all {len(sites)} sites once: {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by}), cuDNN bf16 "
+          f"conv {lib_ms:.4f} ms")
+    results.time("int8_conv", "bf16", ms, plain_ms, bnd, lib_ms)
+
+
+def kernel_q(run, pieces, A, Bv, s):
+    """The int8 values K7's chain computes, read back through the kernel
+    itself: identity weights on the centre tap with the act scales folded
+    back out, so each output is its input's int8 value."""
+    splits = [p.shape[-1] for p in pieces]
+    ctot = sum(splits)
+    sc = torch.cat([s[i].expand(c) for i, c in enumerate(splits)])
+    ident = torch.zeros(3, 3, ctot, ctot, device=sc.device)
+    ident[1, 1] = torch.diag(1.0 / sc)
+    kmat, sw = K7._fold_pack(ident, s, splits)
+    out = run(pieces, A, Bv, s, kmat, sw, torch.zeros(ctot, device=sc.device),
+              torch.float32)
+    return torch.round(out).to(torch.int8)
+
+
+def check_qconv(sites, device, reps, results):
+    """K7 v1 and v2 at every ResBlock conv site, B=BATCH, bf16 pieces:
+    v1 against the plain version (relative L2, max abs over max abs, the
+    int8 flips counted through the kernel), v2 bitwise equal to v1."""
+    g = torch.Generator(device=device).manual_seed(8)
+    B = BATCH
+    ms1 = ms2 = plain_ms = 0.0
+    flips = total = 0
+    bnd = Bound()
+    for h, w, splits, cout in sites:
+        ctot = sum(splits)
+        pieces = [(0.5 * torch.randn(B, h, w, c, generator=g, device=device)
+                   ).to(torch.bfloat16) for c in splits]
+        A = 1.0 + 0.1 * torch.randn(B, ctot, generator=g, device=device)
+        Bv = 0.1 * torch.randn(B, ctot, generator=g, device=device)
+        absmax = torch.stack([p.float().abs().amax() * 1.2 for p in pieces])
+        kernel = 0.2 * torch.randn(3, 3, ctot, cout, generator=g,
+                                   device=device)
+        bias = 0.1 * torch.randn(cout, generator=g, device=device)
+        s_act = Q.act_scale(absmax)
+        kmat, sw = K7._fold_pack(kernel, s_act, list(splits))
+        args = (pieces, A, Bv, s_act, kmat, sw, bias)
+        got = K7.qconv_cuda(*args, torch.float32)
+        got2 = K7.qconv_v2_cuda(*args, torch.float32)
+        torch.cuda.synchronize()
+        want = K7.qconv_reference(pieces, A, Bv, absmax, kernel, bias,
+                                  torch.float32)
+        l2 = ((got.double() - want.double()).norm()
+              / want.double().norm()).item()
+        abs_e, rel_e = rel_err(got, want)
+        tag = f"{h}x{w} {list(splits)}->{cout}"
+        if not l2 <= TOL["qconv_l2"]:
+            raise AssertionError(f"qconv {tag}: relative L2 {l2:.3e} over "
+                                 f"{TOL['qconv_l2']:.0e}")
+        results.record("qconv", tag, abs_e, rel_e, TOL["qconv_max"])
+        if not torch.equal(got, got2):
+            raise AssertionError(f"qconv_v2 {tag}: not bitwise equal to v1")
+        results.record("qconv_v2", tag, abs_e, rel_e, TOL["qconv_max"])
+        del got, got2, want
+        q_p = K7.chain_q(pieces, A, Bv, s_act)
+        n_flip = int((kernel_q(K7.qconv_cuda, pieces, A, Bv, s_act)
+                      != q_p).sum())
+        flips, total = flips + n_flip, total + q_p.numel()
+        del q_p
+        plain = lambda: K7.qconv_reference(pieces, A, Bv, absmax, kernel,
+                                           bias)
+        k1, pm = paired_ms(lambda: K7.qconv_cuda(*args), plain, reps, 1)
+        k2 = cuda_ms(lambda: K7.qconv_v2_cuda(*args), reps)
+        ops = 2 * B * h * w * 9 * ctot * cout
+        b_ms = bnd.add(ops, B * h * w * (2 * ctot + 2 * cout) + 8 * B * ctot
+                       + 9 * ctot * cout + 8 * cout, PEAK["int8"])
+        ms1, ms2, plain_ms = ms1 + k1, ms2 + k2, plain_ms + pm
+        print(f"[K7 qconv] B={B} {tag}: rel L2 {l2:.2e}, max abs {rel_e:.2e} "
+              f"of max; int8 flips {n_flip} of {B * h * w * ctot}; v2 == v1 "
+              f"bitwise; bf16 out: v1 {k1:.4f} ms ({ops / k1 / 1e9:.1f} "
+              f"TOP/s), v2 {k2:.4f} ms, plain {pm:.4f} ms, bound "
+              f"{b_ms:.4f} ms")
+        del pieces, args
+    print(f"[K7 qconv] all {len(sites)} sites once: v1 {ms1:.4f} ms, v2 "
+          f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} ms "
+          f"({bnd.by}); int8 flips {flips} of {total} "
+          f"({flips / max(total, 1):.2e})")
+    results.time("qconv", "bf16", ms1, plain_ms, bnd)
+    results.time("qconv_v2", "bf16", ms2, plain_ms, bnd)
+
+
+def check_latent_traj_int8(lat, device, results):
+    g = torch.Generator(device=device).manual_seed(9)
+    sched = make_schedule(1e-5, 1e-2, T, device)
+    packed = K4.quantize_packed_weights(
+        pack_latent_unet_params(lat.backbone, A_DIM, dtype=torch.bfloat16))
+    xT = torch.randn(BATCH, A_DIM, generator=g, device=device)
+    args = K4.trajectory_inputs(packed, sched, xT, g, deterministic=True)
+    got = K4.latent_trajectory_int8_cuda(*args)
+    torch.cuda.synchronize()
+    abs_e, rel_e = rel_err(got, K4.latent_trajectory_reference(*args))
+    km, pm = paired_ms(lambda: K4.latent_trajectory_int8_cuda(*args),
+                       lambda: K4.latent_trajectory_reference(*args), 1)
+    bnd = Bound()
+    bnd.add(*latent_traj_work(packed["W"]), PEAK["bf16"])
+    print(f"[K4 latent_traj] int8 weights, B={BATCH} d={A_DIM} S={T}: rel "
+          f"err {rel_e:.2e} (abs {abs_e:.2e}); {km:.2f} ms vs plain "
+          f"{pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by})")
+    results.record("latent_traj_int8", "int8", abs_e, rel_e,
+                   TOL["traj_int8"])
+    results.time("latent_traj_int8", "bf16", km, pm, bnd)
+
+
+class env_set:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def int8_slice(device, smi):
+    """The int8 tier at the flagship's width, bf16, B=BATCH: the latent
+    prior with the int8 weight stream, then DDIM through the W8A8 UNet,
+    once per route. Returns each route's launch counts."""
+    cfg, img, lat = flagship(torch.bfloat16, device)
+    gen = torch.Generator(device=device)
+    latent = LatentDiffusionProcess(cfg, lat, turbo="int8")
+    plain = DiffusionProcess(cfg, img)
+    t0 = time.perf_counter()
+    turbo = DiffusionProcess(cfg, img, turbo="int8")
+    torch.cuda.synchronize()
+    print(f"[int8 slice] calibration (one B=32 forward): "
+          f"{time.perf_counter() - t0:.3f} s, {len(turbo.quant)} entries")
+    xT = torch.randn((BATCH, SIZE, SIZE, 3), generator=gen.manual_seed(13),
+                     device=device)
+    lat_xT = torch.randn((BATCH, A_DIM), generator=gen.manual_seed(14),
+                         device=device)
+    a = latent.sampling(xT=lat_xT, generator=gen.manual_seed(15))
+    steps = INT8_STEPS
+    ref = plain.sampling(xT=xT, a=a, num_steps=steps).float()
+    by_route = {}
+    for route, env in INT8_ROUTES.items():
+        with env_set(env):
+            turbo.sampling(xT=xT, a=a, num_steps=2)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            lats = latent.sampling(gen.manual_seed(16), sampling_number=BATCH)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            images = turbo.sampling(xT=xT, a=a, num_steps=steps).float()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = read_launches()
+        if tuple(images.shape) != (BATCH, SIZE, SIZE, 3):
+            raise AssertionError(f"{route}: images {tuple(images.shape)}")
+        if not (torch.isfinite(images).all() and torch.isfinite(lats).all()):
+            raise AssertionError(f"{route}: non-finite output")
+        idle = [k for k in INT8_ROUTE_KERNELS[route] if launches[k] == 0]
+        if idle:
+            raise AssertionError(f"{route}: kernels not launched: {idle}")
+        moved = {k: v for k, v in launches.items() if v}
+        print(f"[int8 slice] {route} B={BATCH}: latents (T={T}, int8 "
+              f"weights) {t1 - t0:.3f} s = {BATCH / (t1 - t0):.2f} latents/s; "
+              f"DDIM-{steps} 64px {t2 - t1:.3f} s = "
+              f"{BATCH / (t2 - t1):.2f} samples/s (host clock, synchronised; "
+              f"{smi}); images rel L2 against the bf16 slice from the same "
+              f"xT and a: {rel_l2(images, ref):.4f}; launches "
+              f"{moved}")
+        by_route[route] = launches
+        del images, lats
+    return by_route
+
+
+def _to(args, dev):
+    """A conv's recorded arguments on ``dev`` (tensors, chains, splits)."""
+    out = []
+    for a in args:
+        if isinstance(a, _AffineChain):
+            a = _AffineChain(tuple(p.to(dev) for p in a.pieces), a.A.to(dev),
+                             a.B.to(dev))
+        elif isinstance(a, torch.Tensor):
+            a = a.to(dev)
+        out.append(a)
+    return out
+
+
+def int8_card_vs_cpu(device):
+    """The int8 tier on the card against the CPU: f32, B=2, the same
+    weights, the same quant state (calibrated once on the CPU, carried
+    across), TF32 off. Latents T=1000 with the int8 stream; then every
+    quantized conv of the first DDIM forward on each route, fed on the card
+    the very inputs it had on the CPU; then DDIM-10 run free on each route,
+    beside the CPU's own spread under a 1e-6 change of xT."""
+    n = 2
+    rng = np.random.RandomState(40)
+    lat_xT = torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32))
+    noises = torch.from_numpy(rng.randn(T, n, A_DIM).astype(np.float32))
+    img_xT = torch.from_numpy(rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
+    nudge = 1.0 + 1e-6 * torch.from_numpy(
+        rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
+    cx = torch.from_numpy(rng.randn(8, SIZE, SIZE, 3).astype(np.float32))
+    ca = torch.from_numpy(rng.randn(8, A_DIM).astype(np.float32))
+    routes = {"int8_default": {},
+              "int8_fused": {"INFODIFF_FORCE_FUSED_QCONV": "1"},
+              "int8_fused_v2": {"INFODIFF_FORCE_FUSED_QCONV": "1",
+                                "INFODIFF_QCONV_V2": "1"}}
+    cpu_route = lambda r: "int8_fused" if r == "int8_fused_v2" else r  # noqa
+    quant = None
+    outs, sites = {}, {}
+    for dev in (torch.device("cpu"), device):
+        cfg, img, lat = flagship(torch.float32, dev, seed=30)
+        if quant is None:
+            Q.calibrate(img, (SIZE, SIZE, 3), a_dim=A_DIM, T=T, x=cx, a=ca)
+            quant = Q.quant_state(img)
+        else:
+            Q.load_quant_state(img, quant)
+        latents = LatentDiffusionProcess(cfg, lat, turbo="int8").sampling(
+            xT=lat_xT.to(dev), noises=noises.to(dev))
+        sched = make_schedule(1e-5, 1e-2, T, dev)
+        outs[(dev.type, "latents")] = latents.cpu()
+        convs = {name: mod for name, mod in img.named_modules()
+                 if isinstance(mod, Conv3) and mod.quantize}
+        for route, env in routes.items():
+            if dev.type == "cpu" and route == "int8_fused_v2":
+                continue  # v2 is a schedule of the card's kernel
+            handles = []
+            if dev.type == "cpu":  # record each conv's first call
+                for name, mod in convs.items():
+                    def record(mod, args, out, key=(route, name)):
+                        if key not in sites:
+                            sites[key] = (_to(args, "cpu"), out.cpu())
+                    handles.append(mod.register_forward_hook(record))
+            with env_set(env), torch.no_grad():
+                y = strided_ddim_loop(img, sched, img_xT.to(dev), None,
+                                      latents, num_steps=10)
+                outs[(dev.type, route)] = y.cpu()
+                if dev.type == "cpu" and route == "int8_default":
+                    outs["nudged"] = strided_ddim_loop(
+                        img, sched, img_xT * nudge, None, latents,
+                        num_steps=10)
+                if dev.type != "cpu":
+                    worst = (0.0, "")
+                    for (r, name), (args, want) in sites.items():
+                        if r != cpu_route(route):
+                            continue
+                        got = convs[name](*_to(args, dev))
+                        worst = max(worst, (rel_err(got, want)[1], name))
+                    outs[("layers", route)] = worst
+            for h in handles:
+                h.remove()
+        del img, lat
+    _, lat_e = rel_err(outs[("cuda", "latents")], outs[("cpu", "latents")])
+    layer_e = max(outs[("layers", r)][0] for r in routes)
+    per_layer = "; ".join(
+        f"{r} worst {outs[('layers', r)][0]:.2e} ({outs[('layers', r)][1]})"
+        for r in routes)
+    free = "; ".join(
+        f"{r} {rel_l2(outs[('cuda', r)], outs[('cpu', cpu_route(r))]):.2e}"
+        for r in routes)
+    floor = rel_l2(outs["nudged"], outs[("cpu", "int8_default")])
+    n_sites = sum(1 for r, _ in sites if r == "int8_default")
+    print(f"[int8 card vs CPU] f32 B={n}, the quant state calibrated on the "
+          f"CPU and carried across: latents T={T} (int8 stream) max abs "
+          f"error over max abs {lat_e:.2e}; each of the {n_sites} quantized "
+          f"convs of the first DDIM forward fed the CPU's inputs, max abs "
+          f"error over max abs: {per_layer} (bar {TOL['slice_int8']:.0e}: "
+          f"an f32 ulp can flip an int8 unit). DDIM-10 run free, relative "
+          f"L2 card vs CPU: {free}; the CPU against itself with xT changed "
+          f"by 1e-6: {floor:.2e} (no bar: int8 rounding carries an ulp-level "
+          f"difference into a whole int8 unit, and the flips spread through "
+          f"the later layers and steps)")
+    for what, e in (("latents", lat_e), ("quantized convs", layer_e)):
+        if not e <= TOL["slice_int8"]:
+            raise AssertionError(f"int8 card vs CPU {what}: {e:.3e} over "
+                                 f"{TOL['slice_int8']:.0e}")
+
+QUEUED = (
+    # (kernel, shape, operations, bytes, rate): the TPU kernels still to
+    # port, at the shape the main path would give them, bf16
+    ("K3c online flash forward", "B=8 N=16384 C=128 (512px)",
+     4 * 8 * 16384 ** 2 * 128, 4 * 8 * 16384 * 128 * 2, "bf16"),
+    ("K5 LatentUNet forward", "B=128 d=256, one step",
+     2 * 128 * 169 * 256 ** 2, 10 * 5 * 256 * 4 * 256 * 2, "bf16"),
+    ("K6 fused shortcut", "B=128 64x64, pieces 128+64 -> 64",
+     2 * 128 * 4096 * 192 * 64, 128 * 4096 * (192 + 64 + 64) * 2, "bf16"),
+    ("K2' tiled attention", "B=128 N=256 C=128",
+     4 * 128 * 256 ** 2 * 128, 4 * 128 * 256 * 128 * 2, "bf16"),
+)
+
+
+def queued_bounds():
+    """The card's bound for each kernel still to port (arithmetic on the
+    published peaks; no kernel runs)."""
+    for name, shape, ops, nbytes, rate in QUEUED:
+        b = Bound()
+        b.add(ops, nbytes, PEAK[rate])
+        print(f"[queued] {name}, {shape}: bound {b.ms:.4f} ms ({b.by})")
+
+
 class Results:
     """Per-kernel errors and times; a check over its bar raises at once."""
 
@@ -587,8 +1147,8 @@ class Results:
         e = self.err[name]
         e[0], e[1] = max(e[0], abs_e), max(e[1], rel_e)
 
-    def time(self, name, tag, ms, plain_ms):
-        self.ms[(name, tag)] = (ms, plain_ms)
+    def time(self, name, tag, ms, plain_ms, bound, library_ms=None):
+        self.ms[(name, tag)] = (ms, plain_ms, bound, library_ms)
 
 
 def run_slice(cfg, img, lat, n, latent_gen, image_gen, *, steps,
@@ -665,35 +1225,74 @@ def card_vs_cpu(device):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases (3-11) to run after 1 "
+                             "and 2; default all, which also prints the "
+                             "kernels line")
+    only = {int(p) for p in parser.parse_args().only.split(",") if p}
+    run = lambda phase: not only or phase in only  # noqa: E731
     smi = check_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     build()
     results = Results()
-    _, img32, _ = flagship(torch.float32, device)
-    check_adagn(adagn_sites(img32, lambda: img32(
-        torch.zeros(1, SIZE, SIZE, 3, device=device),
-        torch.zeros(1, dtype=torch.long, device=device),
-        torch.zeros(1, A_DIM, device=device))), device, 10, results)
-    del img32
-    check_attention(device, 10, results)
-    lat_models = {tag: flagship(dtype, device)[2]
-                  for tag, dtype in DTYPES.items()}
-    check_latent_traj(lat_models, device, 1, results)
-    del lat_models
-    torch.cuda.empty_cache()
-    by_path = {"generation": end_to_end(device, smi)}
-    card_vs_cpu(device)
-    check_adagn_bwd(train_sites(device), device, 5, results)
-    check_flash(device, 5, results)
-    torch.cuda.empty_cache()
-    for size, batch, steps in TRAIN_RUNS:
-        by_path[f"train_{size}px"] = train_run(size, batch, steps, device, smi)
+    by_path = {}
+    if run(3) or run(9):
+        _, img32, _ = flagship(torch.float32, device)
+        forward = lambda: img32(  # noqa: E731
+            torch.zeros(1, SIZE, SIZE, 3, device=device),
+            torch.zeros(1, dtype=torch.long, device=device),
+            torch.zeros(1, A_DIM, device=device))
+        gn_sites = adagn_sites(img32, forward)
+        chainless, fused = qconv_sites(img32, forward)
+        del img32
+    if run(3):
+        check_adagn(gn_sites, device, 10, results)
+        check_attention(device, 10, results)
+        lat_models = {tag: flagship(dtype, device)[2]
+                      for tag, dtype in DTYPES.items()}
+        check_latent_traj(lat_models, device, 1, results)
+        del lat_models
         torch.cuda.empty_cache()
-    train_card_vs_cpu(device)
+    if run(4):
+        by_path["generation"] = end_to_end(device, smi)
+    if run(5):
+        card_vs_cpu(device)
+    if run(6):
+        check_adagn_bwd(train_sites(device), device, 5, results)
+        check_flash(device, 5, results)
+        torch.cuda.empty_cache()
+    if run(7):
+        for size, batch, steps in TRAIN_RUNS:
+            by_path[f"train_{size}px"] = train_run(size, batch, steps, device,
+                                                   smi)
+            torch.cuda.empty_cache()
+    if run(8):
+        train_card_vs_cpu(device)
+    if run(9):
+        check_int8_conv(chainless, device, 5, results)
+        check_qconv(fused, device, 5, results)
+        check_latent_traj_int8(flagship(torch.bfloat16, device)[2], device,
+                               results)
+        torch.cuda.empty_cache()
+    if run(10):
+        by_path.update(int8_slice(device, smi))
+        torch.cuda.empty_cache()
+    if run(11):
+        int8_card_vs_cpu(device)
+    if not only:
+        queued_bounds()
+        print(json.dumps({"kernels": kernel_lines(results, by_path)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def kernel_lines(results, by_path):
     kernels = []
     for name, spec in KERNELS.items():
-        ms, plain_ms = results.ms[(name, "bf16")]
+        ms, plain_ms, bound, library_ms = results.ms[(name, "bf16")]
         kernels.append({
             "name": name, "route": spec["route"], "source": spec["source"],
             "replaces": spec["replaces"],
@@ -701,12 +1300,11 @@ def main() -> None:
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
             "max_abs_err": results.err[name][0],
             "max_rel_err": results.err[name][1],
-            "ms": ms, "plain_ms": plain_ms, "timed_dtype": "bf16",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound.ms,
+            "bound_by": bound.by, "library_ms": library_ms,
+            "library_call": spec.get("library"), "timed_dtype": "bf16",
         })
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":

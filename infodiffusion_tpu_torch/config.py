@@ -57,6 +57,9 @@ class Config:
     bf16: bool = False
     # EMA of the parameters (0 = off)
     ema_decay: float = 0.0
+    # inference tier of the samplers: '' (INFODIFF_TURBO decides), 'off'
+    # or one of ops.quant.MODES
+    turbo: str = ""
 
     def __post_init__(self):
         if self.model not in MODELS:
@@ -66,6 +69,13 @@ class Config:
         if self.dataset not in DATASETS:
             raise ValueError(
                 f"dataset must be one of {DATASETS}, got {self.dataset!r}"
+            )
+        from infodiffusion_tpu_torch.ops.quant import MODES as _TURBO_MODES
+
+        if self.turbo not in ("", "off") + _TURBO_MODES:
+            raise ValueError(
+                f"turbo must be '', 'off' or one of {_TURBO_MODES}, "
+                f"got {self.turbo!r}"
             )
 
     def with_dataset_config(self) -> "Config":

@@ -12,8 +12,8 @@
 
 #define INFODIFF_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Element types the wrappers pass: 0 = float32, 1 = bfloat16.
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// Element types the wrappers pass: 0 = float32, 1 = bfloat16, 2 = int8.
+enum DType : int { kF32 = 0, kBF16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

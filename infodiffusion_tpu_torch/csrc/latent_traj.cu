@@ -1,7 +1,8 @@
 // K4: the whole latent DDIM/DDPM/reverse trajectory in one launch.
 //
 // Replaces infodiffusion_tpu/ops/pallas/latent_traj.py
-// (latent_trajectory_pallas / _kernel), the bf16/f32 weight stream. Each
+// (latent_trajectory_pallas / _kernel): the bf16/f32 weight stream and the
+// int8 one of the turbo tier (quantize_packed_weights). Each
 // of the S steps runs the packed LatentUNet: 10 layers of
 // [rows, 5d] x [5d, 4d] + bias (layer 0 reads only x @ W[0][:d]), times the
 // precomputed 1 + FiLM row c_all[i, j], LayerNorm over the 4d hidden
@@ -26,8 +27,14 @@
 // Matmul inputs are rounded to W's dtype with f32 accumulation, as the
 // TPU kernel does.
 //
+// The int8 weight stream: W int8 with a per-(layer, column) f32 scale
+// table Wsc [L, 4d]. It halves the bytes per step (13.1 MB at d = 256
+// against bf16's 26.2 MB). Each weight converts to bf16 in registers
+// (exact: |w| <= 127), the inputs are rounded to bf16, the f32 sum is
+// scaled by Wsc[j] per column before the bias, as the TPU kernel does.
+//
 // Limits: d <= 1024 (one thread per 4 hidden columns, h = 4d); BT in
-// {1, 2, 4, 8}; W is f32 or bf16 (the int8 weight stream is not ported).
+// {1, 2, 4, 8}; W is f32, bf16 or int8 (with Wsc).
 #include "common.cuh"
 
 namespace {
@@ -51,6 +58,24 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
   w[2] = b.x;
   w[3] = b.y;
 }
+
+__device__ __forceinline__ void load4(const int8_t* p, float (&w)[4]) {
+  const char4 t = *reinterpret_cast<const char4*>(p);
+  w[0] = (float)t.x;
+  w[1] = (float)t.y;
+  w[2] = (float)t.z;
+  w[3] = (float)t.w;
+}
+
+// The type the matmul inputs are rounded to: W's own, bf16 for int8 W.
+template <typename WT>
+struct InputType {
+  using type = WT;
+};
+template <>
+struct InputType<int8_t> {
+  using type = __nv_bfloat16;
+};
 
 // Sum v[r] over the block for each of the BT rows; every thread gets the
 // totals. red holds [BT][32] per-warp partials, stat [BT] the totals.
@@ -85,11 +110,13 @@ __global__ void __launch_bounds__(1024)
                        const float* __restrict__ noise,
                        const float* __restrict__ bias,
                        const float* __restrict__ gam,
-                       const float* __restrict__ bet, float* __restrict__ out,
+                       const float* __restrict__ bet,
+                       const float* __restrict__ wsc, float* __restrict__ out,
                        int B, int S, int L, int d) {
+  using IT = typename InputType<WT>::type;
   const int h = 4 * d, win = h + d;
   extern __shared__ float sm[];
-  float* inp = sm;               // [BT][win] layer input [h, x], rounded to WT
+  float* inp = sm;               // [BT][win] layer input [h, x], rounded to IT
   float* xs = inp + BT * win;    // [BT][d] f32 state
   float* red = xs + BT * d;      // [BT][32]
   float* stat = red + BT * 32;   // [BT]
@@ -103,7 +130,7 @@ __global__ void __launch_bounds__(1024)
     const int r = i / d, c = i % d;
     const float v = (row0 + r < B) ? xT[(size_t)(row0 + r) * d + c] : 0.f;
     xs[i] = v;
-    inp[r * win + h + c] = round_to<WT>(v);
+    inp[r * win + h + c] = round_to<IT>(v);
   }
   __syncthreads();
 
@@ -130,6 +157,14 @@ __global__ void __launch_bounds__(1024)
             const float a = inp[r * win + in_off + k];
 #pragma unroll
             for (int c = 0; c < 4; ++c) z[r][c] = fmaf(a, w[c], z[r][c]);
+          }
+        }
+        if (wsc) {  // int8 stream: per-column dequant before the bias
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float sc = wsc[j * h + col + c];
+#pragma unroll
+            for (int r = 0; r < BT; ++r) z[r][c] = __fmul_rn(z[r][c], sc);
           }
         }
 #pragma unroll
@@ -177,7 +212,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               const float t = fmaf((z[r][c] - mean[r]) * rstd, g[c], be[c]);
-              inp[r * win + col + c] = round_to<WT>(t / (1.f + expf(-t)));
+              inp[r * win + col + c] = round_to<IT>(t / (1.f + expf(-t)));
             }
           }
         }
@@ -195,7 +230,7 @@ __global__ void __launch_bounds__(1024)
               const float xn =
                   cx * xs[r * d + col + c] + ce * z[r][c] + cn * n;
               xs[r * d + col + c] = xn;
-              inp[r * win + h + col + c] = round_to<WT>(xn);
+              inp[r * win + h + col + c] = round_to<IT>(xn);
             }
           }
         }
@@ -212,8 +247,8 @@ __global__ void __launch_bounds__(1024)
 template <typename WT, int BT>
 int launch(const float* xT, const float* coef, const void* W,
            const float* c_all, const float* noise, const float* bias,
-           const float* gam, const float* bet, float* out, int B, int S,
-           int L, int d, cudaStream_t stream) {
+           const float* gam, const float* bet, const float* wsc, float* out,
+           int B, int S, int L, int d, cudaStream_t stream) {
   const int threads = (d + 31) / 32 * 32;
   const size_t smem = sizeof(float) * (BT * (5 * d) + BT * d + BT * 32 + BT);
   auto kernel = latent_traj_kernel<WT, BT>;
@@ -223,49 +258,54 @@ int launch(const float* xT, const float* coef, const void* W,
   const int blocks = (B + BT - 1) / BT;
   kernel<<<blocks, threads, smem, stream>>>(xT, coef,
                                             static_cast<const WT*>(W), c_all,
-                                            noise, bias, gam, bet, out, B, S,
-                                            L, d);
+                                            noise, bias, gam, bet, wsc, out,
+                                            B, S, L, d);
   return (int)cudaGetLastError();
 }
 
 template <typename WT>
 int dispatch_bt(int bt, const float* xT, const float* coef, const void* W,
                 const float* c_all, const float* noise, const float* bias,
-                const float* gam, const float* bet, float* out, int B, int S,
-                int L, int d, cudaStream_t stream) {
+                const float* gam, const float* bet, const float* wsc,
+                float* out, int B, int S, int L, int d, cudaStream_t stream) {
   switch (bt) {
     case 1:
-      return launch<WT, 1>(xT, coef, W, c_all, noise, bias, gam, bet, out, B,
-                           S, L, d, stream);
+      return launch<WT, 1>(xT, coef, W, c_all, noise, bias, gam, bet, wsc, out,
+                           B, S, L, d, stream);
     case 2:
-      return launch<WT, 2>(xT, coef, W, c_all, noise, bias, gam, bet, out, B,
-                           S, L, d, stream);
+      return launch<WT, 2>(xT, coef, W, c_all, noise, bias, gam, bet, wsc, out,
+                           B, S, L, d, stream);
     case 4:
-      return launch<WT, 4>(xT, coef, W, c_all, noise, bias, gam, bet, out, B,
-                           S, L, d, stream);
+      return launch<WT, 4>(xT, coef, W, c_all, noise, bias, gam, bet, wsc, out,
+                           B, S, L, d, stream);
     case 8:
-      return launch<WT, 8>(xT, coef, W, c_all, noise, bias, gam, bet, out, B,
-                           S, L, d, stream);
+      return launch<WT, 8>(xT, coef, W, c_all, noise, bias, gam, bet, wsc, out,
+                           B, S, L, d, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// xT, out: [B, d] f32; coef: [S, 3] f32; W: [L, 5d, 4d] f32 or bf16
-// (`dtype`); c_all: [S, L, 4d] f32; noise: [S, B, d] f32;
-// bias, gam, bet: [L, 4d] f32. All contiguous.
+// xT, out: [B, d] f32; coef: [S, 3] f32; W: [L, 5d, 4d] f32, bf16 or int8
+// (`dtype` 0, 1, 2); wsc: [L, 4d] f32 for int8 W, else null; c_all:
+// [S, L, 4d] f32; noise: [S, B, d] f32; bias, gam, bet: [L, 4d] f32. All
+// contiguous.
 INFODIFF_EXPORT int infodiff_latent_traj(const float* xT, const float* coef,
                                          const void* W, const float* c_all,
                                          const float* noise, const float* bias,
                                          const float* gam, const float* bet,
-                                         float* out, int B, int S, int L,
-                                         int d, int bt, int dtype,
-                                         cudaStream_t stream) {
+                                         const float* wsc, float* out, int B,
+                                         int S, int L, int d, int bt,
+                                         int dtype, cudaStream_t stream) {
   if (d < 1 || d > 1024) return (int)cudaErrorInvalidValue;
+  if ((dtype == kInt8) != (wsc != nullptr)) return (int)cudaErrorInvalidValue;
+  if (dtype == kInt8)
+    return dispatch_bt<int8_t>(bt, xT, coef, W, c_all, noise, bias, gam, bet,
+                               wsc, out, B, S, L, d, stream);
   if (dtype == kBF16)
     return dispatch_bt<__nv_bfloat16>(bt, xT, coef, W, c_all, noise, bias,
-                                      gam, bet, out, B, S, L, d, stream);
-  return dispatch_bt<float>(bt, xT, coef, W, c_all, noise, bias, gam, bet, out,
-                            B, S, L, d, stream);
+                                      gam, bet, wsc, out, B, S, L, d, stream);
+  return dispatch_bt<float>(bt, xT, coef, W, c_all, noise, bias, gam, bet,
+                            wsc, out, B, S, L, d, stream);
 }

@@ -8,10 +8,11 @@ runs as one kernel launch (K4, ``ops/cuda/latent_traj.py``).
   full T grid.
 - ``strided_ddim_loop``: DDIM-N on the evenly spaced subgrid, walked down
   to t_prev = -1.
-- ``DiffusionProcess``: the image sampler's ``sampling`` path (no mesh,
-  no turbo tier).
+- ``DiffusionProcess``: the image sampler's ``sampling`` path (no mesh),
+  with the int8 turbo tier (``turbo='int8'``: W8A8 UNet conv bodies).
 - ``LatentDiffusionProcess``: sampling and reverse sampling of the latent
-  prior through the trajectory kernel.
+  prior through the trajectory kernel; ``turbo='int8'`` streams int8
+  weights.
 
 ``eps_fn(x, t, a)`` takes an int64 ``t`` [B]; random draws come from an
 explicit ``torch.Generator`` on the device, or are injected with
@@ -31,8 +32,12 @@ from infodiffusion_tpu_torch.diffusion.schedule import (
     make_schedule,
     strided_ddim_step,
 )
+from infodiffusion_tpu_torch.ops import quant as q8
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
-from infodiffusion_tpu_torch.ops.cuda.latent_traj import latent_trajectory
+from infodiffusion_tpu_torch.ops.cuda.latent_traj import (
+    latent_trajectory,
+    quantize_packed_weights,
+)
 
 
 def _full_t(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -109,13 +114,33 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _resolve_turbo(cfg, turbo: Optional[str]) -> str:
+    """The turbo tier: the argument, else ``cfg.turbo``, else
+    ``INFODIFF_TURBO``. '' falls through; 'off' stops the fall-through.
+    Returns '' or a ported tier; 'int8x' and unknown names raise."""
+    mode = turbo if turbo is not None else (
+        getattr(cfg, "turbo", "") or q8.turbo_mode())
+    if mode in ("", "off"):
+        return ""
+    q8.check_mode(mode)
+    return mode
+
+
 class DiffusionProcess:
     """The image sampler. ``model`` is a port ``InfoDiff``, conditioned on
     ``a`` (the unconditional image Diff is not ported); ``sampling`` draws
     xT ~ N(0, I), and a ~ N(0, I) when not given, from ``generator``. The
-    carry stays f32 whatever the model's dtype."""
+    carry stays f32 whatever the model's dtype.
 
-    def __init__(self, cfg, model: torch.nn.Module):
+    ``turbo='int8'`` (or ``cfg.turbo``, or ``INFODIFF_TURBO``) calibrates
+    the activation scales once, here (``ops.quant.calibrate``), and the
+    UNet's conv bodies then run W8A8. The process keeps the quant state
+    and installs it on the model's modules for the length of each
+    ``sampling`` call only, so the model is left without it (training and
+    other processes over the same model never see it)."""
+
+    def __init__(self, cfg, model: torch.nn.Module,
+                 turbo: Optional[str] = None):
         self.cfg = cfg
         self.model = model.eval()
         c, h, w = cfg.shape
@@ -123,6 +148,13 @@ class DiffusionProcess:
         self.device = _device_of(model)
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
+        self.turbo = _resolve_turbo(cfg, turbo)
+        self.quant = {}
+        if self.turbo:
+            q8.calibrate(model, self.data_shape, a_dim=cfg.a_dim,
+                         T=cfg.diffusion_steps, mode=self.turbo)
+            self.quant = q8.quant_state(model)
+            q8.clear_quant_state(model)
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
@@ -138,27 +170,36 @@ class DiffusionProcess:
         if a is None:
             a = torch.randn((xT.shape[0], self.cfg.a_dim),
                             generator=generator, device=self.device)
-        if num_steps is not None:
-            return strided_ddim_loop(self.model, self.sched, xT, generator,
-                                     a, num_steps=num_steps)
-        return sample_loop(self.model, self.sched, xT, generator, a,
-                           deterministic=self.cfg.deterministic)
+        q8.load_quant_state(self.model, self.quant)
+        try:
+            if num_steps is not None:
+                return strided_ddim_loop(self.model, self.sched, xT,
+                                         generator, a, num_steps=num_steps)
+            return sample_loop(self.model, self.sched, xT, generator, a,
+                               deterministic=self.cfg.deterministic)
+        finally:
+            q8.clear_quant_state(self.model)
 
 
 class LatentDiffusionProcess:
     """The latent prior's sampler: the whole trajectory runs as one K4
     launch on the card (its plain version on the CPU). ``model`` is a port
     ``Diff(is_latent=True)``; its weights are packed once, here, in the
-    model's dtype."""
+    model's dtype, and with ``turbo='int8'`` quantized to the int8 weight
+    stream (``quantize_packed_weights``)."""
 
-    def __init__(self, cfg, model: torch.nn.Module):
+    def __init__(self, cfg, model: torch.nn.Module,
+                 turbo: Optional[str] = None):
         self.cfg = cfg
         self.model = model.eval()
         self.device = _device_of(model)
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
+        self.turbo = _resolve_turbo(cfg, turbo)
         self.params = pack_latent_unet_params(model.backbone, cfg.a_dim,
                                               dtype=model.dtype)
+        if self.turbo:
+            self.params = quantize_packed_weights(self.params)
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,

@@ -8,7 +8,8 @@ rules cover every parameter:
 - Dense ``kernel`` [I, O] -> ``weight`` [O, I];
 - norm ``scale`` -> ``weight``; every ``bias`` stays ``bias``.
 
-A reference ``.pth`` checkpoint can later be loaded by composing
+``from_jax_quant`` carries the int8 tier's calibrated quant collection
+the same way. A reference ``.pth`` checkpoint can later be loaded by composing
 ``infodiffusion_tpu/interop.py``'s key map with this function.
 """
 
@@ -57,4 +58,39 @@ def from_jax_params(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
     ``load_state_dict(strict=True)``: every parameter on both sides must
     match by name and shape. Returns ``module``."""
     module.load_state_dict(to_state_dict(tree), strict=True)
+    return module
+
+
+def from_jax_quant(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
+    """Carry a Flax ``variables['quant']`` tree (the int8 tier's calibrated
+    ``act_absmax`` entries and ``fused_qconv`` markers) into ``module``'s
+    quant state, as :func:`from_jax_params` carries params. Strict: the
+    tree's ``act_absmax`` entries are exactly the module's quantized convs,
+    every marker lands on a norm that can hold one, and every shape
+    matches. The module's earlier quant state is dropped. Returns
+    ``module``."""
+    from infodiffusion_tpu_torch.ops import quant as q8
+
+    flat = {}
+
+    def walk(prefix: str, node: Mapping) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(f"{prefix}{key}.", value)
+            else:
+                flat[prefix + key] = np.asarray(value, dtype=np.float32)
+
+    walk("", tree)
+    sites = q8.quant_sites(module)
+    want = {k for k in sites if k.endswith("act_absmax")}
+    missing = sorted(want - set(flat))
+    unexpected = sorted(set(flat) - set(sites))
+    if missing or unexpected:
+        raise ValueError(f"quant tree does not match the module: missing "
+                         f"{missing}, unexpected {unexpected}")
+    for name, arr in flat.items():
+        if arr.shape != sites[name]:
+            raise ValueError(f"{name}: shape {arr.shape}, the module's site "
+                             f"has {sites[name]}")
+    q8.load_quant_state(module, {k: torch.tensor(v) for k, v in flat.items()})
     return module

@@ -6,7 +6,8 @@ module names: ``num_res_blocks`` down blocks per level with a skip pushed
 after each, a skip after each DownSample, two middle blocks (attention on
 the first), ``num_res_blocks + 1`` up blocks each popping a skip,
 attention at the levels in ``attn``; one running counter names
-``downblock_N`` / ``middleblock_N`` / ``upblock_N``. Two ``aux_mode``s
+``downblock_N`` / ``middleblock_N`` / ``upblock_N``; an up block gets
+the skip concat as the pieces ``(h, skip)``. Two ``aux_mode``s
 are ported: ``'all'`` (AuxResBlocks, ``AuxiliaryUNet``) and ``'encoder'``
 (EncoderResBlocks, ``Encoder``).
 
@@ -57,13 +58,15 @@ class _UNetSkeleton(nn.Module):
             nonlocal n
             name = f"{kind}block_{n}"
             n += 1
+            up = kind == "up"
             self.add_module(name, (
-                AuxResBlock(in_c, out_c, emb_dim, use_attn, dtype)
+                AuxResBlock(in_c, out_c, emb_dim, use_attn, dtype, up)
                 if aux_mode == "all"
-                else EncoderResBlock(in_c, out_c, use_attn, dtype)))
+                else EncoderResBlock(in_c, out_c, use_attn, dtype, up)))
             self._plan.append((kind, name))
 
-        self.head = Conv3(in_ch or out_ch, ch, dtype)
+        # the image head and tail stay in the model dtype in the int8 tier
+        self.head = Conv3(in_ch or out_ch, ch, dtype, quantize=False)
         skips = [ch]
         now = ch
         for i, mult in enumerate(ch_mult):
@@ -85,7 +88,8 @@ class _UNetSkeleton(nn.Module):
                 self.add_module(f"up_{i}", UpSample(now, dtype))
                 self._plan.append(("resample", f"up_{i}"))
         self.tail_norm = _GNParams(now)
-        self.tail_conv = Conv3(now, out_ch, dtype, gain=TAIL_GAIN)
+        self.tail_conv = Conv3(now, out_ch, dtype, gain=TAIL_GAIN,
+                               quantize=False)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
                 aemb: Optional[torch.Tensor] = None, *,
@@ -103,8 +107,8 @@ class _UNetSkeleton(nn.Module):
                 if name.startswith("down"):
                     hs.append(h)
                 continue
-            if kind == "up":
-                h = torch.cat([h, hs.pop()], dim=1)
+            if kind == "up":  # the block concatenates the pieces
+                h = (h, hs.pop())
             h = mod(h, *cond, deterministic, generator)
             if kind == "down":
                 hs.append(h)

@@ -9,14 +9,22 @@ two FiLMs) is ``ops.norm.adagn``, kernel K1 on the card.
 Ported: ``AuxResBlock`` (the backbone) and ``EncoderResBlock`` (the
 Encoder), not ``ResBlock``. Dropout follows Flax ``nn.Dropout`` and is off
 unless a block is called with ``deterministic=False`` and an explicit
-``torch.Generator``. The skip concat is a plain ``torch.cat`` in the
-caller (the JAX package's concat-free piece forms are XLA fusion structure
-with the same math and param tree).
+``torch.Generator``. An up block takes its input as the pieces
+``(h, skip)`` of the skip concat and concatenates them itself (a plain
+``torch.cat``): the model-dtype path runs on the concat, and the int8
+tier's first conv quantizes each piece with its own scale.
+
+The int8 turbo tier (``ops/quant.py``): a quantized conv with quant state
+runs W8A8 (``int8_conv``); during calibration it observes its input. A
+norm marked ``fused_qconv`` by calibration hands its conv an
+``_AffineChain`` when the fused kernel is on (``use_fused_qconv``) and the
+call is deterministic: the conv then runs K7 (``ops/cuda/qconv.py``) on
+the unnormalized pieces.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +32,13 @@ from torch import nn
 
 from infodiffusion_tpu_torch.nn.attention import AttnBlock
 from infodiffusion_tpu_torch.nn.layers import Dense, xavier_
-from infodiffusion_tpu_torch.ops.norm import adagn
+from infodiffusion_tpu_torch.ops import quant as q8
+from infodiffusion_tpu_torch.ops.cuda.qconv import (
+    fused_qconv_supported,
+    qconv_fused,
+    use_fused_qconv,
+)
+from infodiffusion_tpu_torch.ops.norm import adagn, group_norm_affine
 
 _GROUPS = 32
 DROPOUT = 0.1  # the rate of every ResBlock's dropout
@@ -56,25 +70,83 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+class _AffineChain(NamedTuple):
+    """A norm's output handed to its conv unmaterialized: the conv input is
+    ``silu(concat(pieces) * A + B)`` with NHWC ``pieces`` and f32 rows A, B
+    [batch, C_total] (``ops.norm.group_norm_affine``). A conv given one
+    runs K7 or materializes it (:func:`_materialize_chain`)."""
+
+    pieces: Tuple[torch.Tensor, ...]
+    A: torch.Tensor
+    B: torch.Tensor
+
+
+def _materialize_chain(chain: _AffineChain, dtype) -> torch.Tensor:
+    """The chain as the default route computes it (affine in f32, cast to
+    ``dtype``, SiLU), concatenated: NCHW."""
+    out, o = [], 0
+    for p in chain.pieces:
+        c = p.shape[-1]
+        h = (p.to(torch.float32) * chain.A[:, None, None, o:o + c]
+             + chain.B[:, None, None, o:o + c])
+        out.append(F.silu(h.to(dtype)))
+        o += c
+    return _nchw(torch.cat(out, dim=-1))
+
+
 class Conv3(nn.Module):
     """torch ``Conv2d(k=3, stride, padding=1)``: symmetric padding, not
     'SAME' (asymmetric at stride 2), computed in ``dtype`` with f32
     parameters. ``repeat=2`` puts a nearest-x2 upsample before the conv
-    (``UpSample``)."""
+    (``UpSample``).
+
+    int8 tier: with ``quantize`` the conv observes its input during
+    calibration and, given quant state, runs W8A8: weights quantized per
+    output channel at every call, the input at its calibrated scale (before
+    the repeat: |x| is repeat-invariant), ``int8_conv``, then
+    ``f32(y) * (sx * sw) + bias`` in ``dtype``. ``quantize=False`` pins a
+    conv (the image head and tail) to ``dtype``."""
 
     def __init__(self, in_ch: int, out_ch: int,
                  dtype: torch.dtype = torch.float32, stride: int = 1,
-                 repeat: int = 1, gain: float = 1.0):
+                 repeat: int = 1, gain: float = 1.0, quantize: bool = True):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.repeat = repeat
+        self.quantize = quantize
         self.weight = nn.Parameter(
             xavier_(torch.empty(out_ch, in_ch, 3, 3), gain)
         )
         self.bias = nn.Parameter(torch.zeros(out_ch))
+        if quantize:
+            self.register_buffer("act_absmax", None, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _hwio(self) -> torch.Tensor:
+        return self.weight.permute(2, 3, 1, 0)
+
+    def _turbo(self) -> bool:
+        return (self.quantize and self.act_absmax is not None
+                and not q8.calib_mode())
+
+    def _fused(self, chain: _AffineChain) -> torch.Tensor:
+        return _nchw(qconv_fused(list(chain.pieces), chain.A, chain.B,
+                                 self.act_absmax.reshape(-1), self._hwio(),
+                                 self.bias, self.dtype))
+
+    def forward(self, x) -> torch.Tensor:
+        if isinstance(x, _AffineChain):
+            if self._turbo() and self.stride == 1 and self.repeat == 1:
+                return self._fused(x)
+            x = _materialize_chain(x, self.dtype)
+        if self.quantize and q8.calib_mode():
+            q8.observe_absmax(self, x)
+        elif self._turbo():
+            return self._int8(x)
+        return self._conv(x)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The model-dtype conv."""
         x = x.to(self.dtype)
         if self.repeat > 1:
             x = F.interpolate(x, scale_factor=self.repeat, mode="nearest")
@@ -83,10 +155,62 @@ class Conv3(nn.Module):
             stride=self.stride, padding=1,
         )
 
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:
+        kq, sw = q8.quantize_weight(self.weight, (1, 2, 3))
+        xq, sx = q8.quantize_act(_nhwc(x), self.act_absmax)
+        if self.repeat > 1:
+            xq = xq.repeat_interleave(self.repeat, dim=1).repeat_interleave(
+                self.repeat, dim=2)
+        y = q8.int8_conv(xq, kq.permute(2, 3, 1, 0), self.stride,
+                         scale=sx * sw, bias=self.bias.to(torch.float32),
+                         out_dtype=self.dtype)
+        return _nchw(y)
+
+
+class PieceConv3(Conv3):
+    """The first conv of an up block, over the skip concat: the same
+    parameters as :class:`Conv3`, and ``forward(x, splits)`` takes the
+    concatenated NCHW input with the pieces' channel counts (or an
+    ``_AffineChain``). In the model dtype it is one conv over the concat.
+    In the int8 tier each piece quantizes at its own calibrated scale
+    (``act_absmax`` of shape (n_pieces,)), the scales folded into the
+    kernel's input-channel slices (``quantize_pieces_folded``); the piece
+    convs' partial sum is rounded to bf16 between pieces, then dequantized
+    once: ``acc * sw + bias``."""
+
+    def forward(self, x, splits: Optional[Sequence[int]] = None):
+        if isinstance(x, _AffineChain):
+            if self._turbo():
+                return self._fused(x)
+            splits = [p.shape[-1] for p in x.pieces]
+            x = _materialize_chain(x, self.dtype)
+        if splits is None or not (q8.calib_mode() or self._turbo()):
+            return super().forward(x)
+        pieces = [_nhwc(p) for p in x.split(list(splits), dim=1)]
+        if q8.calib_mode():
+            q8.observe_absmax(self, pieces)
+            return self._conv(x)
+        xqs, kq, sw = q8.quantize_pieces_folded(pieces, self.act_absmax,
+                                                self._hwio())
+        acc, o = None, 0
+        for i, xq in enumerate(xqs):
+            c = xq.shape[-1]
+            k = kq[:, :, o:o + c, :]
+            if i < len(xqs) - 1:
+                acc = q8.int8_conv(xq, k, 1, partial=acc,
+                                   out_dtype=torch.bfloat16)
+            else:
+                y = q8.int8_conv(xq, k, 1, partial=acc, scale=sw,
+                                 bias=self.bias.to(torch.float32),
+                                 out_dtype=self.dtype)
+            o += c
+        return _nchw(y)
+
 
 class ShortcutDense(Dense):
     """The ResBlock 1x1 shortcut as a Dense over the channel axis;
-    ``forward(x, residual)`` returns ``residual + dense(x)`` (NCHW)."""
+    ``forward(x, residual)`` returns ``residual + dense(x)`` (NCHW). It
+    stays in the model dtype in the int8 tier."""
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         return residual + _nchw(super().forward(_nhwc(x)))
@@ -94,75 +218,138 @@ class ShortcutDense(Dense):
 
 class _GNParams(nn.Module):
     """GroupNorm scale/bias (as ``weight``/``bias``) with the math in
-    ``ops.norm.adagn``, so the FiLM-fused form uses the same parameters."""
+    ``ops.norm.adagn``, so the FiLM-fused form uses the same parameters.
+    ``x`` is one NCHW tensor.
 
-    def __init__(self, channels: int):
+    ``pieces``, when given, are the NCHW skip-concat pieces of ``x``, which
+    a chain keeps apart. ``fused_out_ch`` marks a norm that feeds a
+    quantized ResBlock conv of that many output channels. During int8 calibration it records the
+    ``fused_qconv`` marker where ``fused_qconv_supported`` passes; when the
+    marker is set, the call deterministic and ``use_fused_qconv`` on, it
+    returns an :class:`_AffineChain` instead of normalized activations."""
+
+    def __init__(self, channels: int, fused_out_ch: Optional[int] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.fused_out_ch = fused_out_ch
+        if fused_out_ch is not None:
+            self.register_buffer("fused_qconv", None, persistent=False)
 
-    def forward(self, x: torch.Tensor, films=()) -> torch.Tensor:
+    def forward(self, x, films=(), deterministic: bool = True, pieces=None):
+        plist = list(pieces) if pieces is not None else [x]
+        if self.fused_out_ch is not None:
+            shapes = [(p.shape[0], p.shape[2], p.shape[3], p.shape[1])
+                      for p in plist]
+            if q8.calib_mode() == "int8":
+                if fused_qconv_supported(shapes, self.fused_out_ch):
+                    self.fused_qconv = torch.ones((), device=plist[0].device)
+            elif (self.fused_qconv is not None and deterministic
+                  and use_fused_qconv(plist[0])
+                  and fused_qconv_supported(shapes, self.fused_out_ch)):
+                nhwc = tuple(_nhwc(p) for p in plist)
+                A, B = group_norm_affine(nhwc, _GROUPS, self.weight,
+                                         self.bias, films)
+                return _AffineChain(nhwc, A, B)
         return _nchw(adagn(_nhwc(x), _GROUPS, self.weight, self.bias, films))
 
 
-class AuxResBlock(nn.Module):
+def _as_pieces(x):
+    """(pieces or None, the concatenated input)."""
+    if isinstance(x, (tuple, list)):
+        return list(x), torch.cat(list(x), dim=1)
+    return None, x
+
+
+class _ResBlockBase(nn.Module):
+    """What the two ResBlocks share: norm1-SiLU-conv1 over the input or
+    the skip-concat pieces, and the SiLU-dropout-conv stages after it."""
+
+    def _stage1(self, x, pieces, deterministic):
+        h = self.norm1(x, deterministic=deterministic, pieces=pieces)
+        if isinstance(h, _AffineChain):
+            return self.conv1(h)
+        h = F.silu(h)
+        if pieces is not None:
+            return self.conv1(h, [p.shape[1] for p in pieces])
+        return self.conv1(h)
+
+    @staticmethod
+    def _stage_n(norm, conv, h, films, deterministic, generator):
+        h = norm(h, films=films, deterministic=deterministic)
+        if isinstance(h, _AffineChain):
+            return conv(h)
+        return conv(dropout(F.silu(h), DROPOUT, deterministic, generator))
+
+    def _epilogue(self, x, h):
+        h = self.shortcut(x, h) if self.shortcut is not None else h + x
+        return self.attn(h) if self.attn is not None else h
+
+
+class AuxResBlock(_ResBlockBase):
     """ResBlock with dual FiLM, time then aux latent: norm1-SiLU-conv1,
     [norm2 + FiLM(t) + FiLM(a)]-SiLU-dropout-conv2,
-    norm3-SiLU-dropout-conv3, + shortcut, then optional attention."""
+    norm3-SiLU-dropout-conv3, + shortcut, then optional attention.
+    ``skip_concat`` builds an up block, which takes ``(h, skip)``."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
-                 attn: bool = False, dtype: torch.dtype = torch.float32):
+                 attn: bool = False, dtype: torch.dtype = torch.float32,
+                 skip_concat: bool = False):
         super().__init__()
-        self.norm1 = _GNParams(in_ch)
-        self.conv1 = Conv3(in_ch, out_ch, dtype)
+        self.norm1 = _GNParams(in_ch, out_ch)
+        self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
+                                                            dtype)
         self.temb_proj = Dense(emb_dim, 2 * out_ch, dtype)
         self.aemb_proj = Dense(emb_dim, 2 * out_ch, dtype)
-        self.norm2 = _GNParams(out_ch)
+        self.norm2 = _GNParams(out_ch, out_ch)
         self.conv2 = Conv3(out_ch, out_ch, dtype)
-        self.norm3 = _GNParams(out_ch)
+        self.norm3 = _GNParams(out_ch, out_ch)
         self.conv3 = Conv3(out_ch, out_ch, dtype)
         self.shortcut = (
             ShortcutDense(in_ch, out_ch, dtype) if in_ch != out_ch else None
         )
         self.attn = AttnBlock(out_ch, dtype) if attn else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                aemb: torch.Tensor, deterministic: bool = True,
+    def forward(self, x, temb: torch.Tensor, aemb: torch.Tensor,
+                deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        pieces, x = _as_pieces(x)
+        h = self._stage1(x, pieces, deterministic)
         t_scale, t_shift = self.temb_proj(F.silu(temb)).chunk(2, dim=-1)
         a_scale, a_shift = self.aemb_proj(F.silu(aemb)).chunk(2, dim=-1)
-        h = self.norm2(h, films=((t_scale, t_shift), (a_scale, a_shift)))
-        h = self.conv2(dropout(F.silu(h), DROPOUT, deterministic, generator))
-        h = self.conv3(dropout(F.silu(self.norm3(h)), DROPOUT, deterministic,
-                               generator))
-        h = self.shortcut(x, h) if self.shortcut is not None else h + x
-        return self.attn(h) if self.attn is not None else h
+        h = self._stage_n(self.norm2, self.conv2, h,
+                          ((t_scale, t_shift), (a_scale, a_shift)),
+                          deterministic, generator)
+        h = self._stage_n(self.norm3, self.conv3, h, (), deterministic,
+                          generator)
+        return self._epilogue(x, h)
 
 
-class EncoderResBlock(nn.Module):
+class EncoderResBlock(_ResBlockBase):
     """The unconditioned ResBlock of the Encoder: norm1-SiLU-conv1,
     norm2-SiLU-dropout-conv2, + shortcut, then optional attention."""
 
     def __init__(self, in_ch: int, out_ch: int, attn: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 skip_concat: bool = False):
         super().__init__()
-        self.norm1 = _GNParams(in_ch)
-        self.conv1 = Conv3(in_ch, out_ch, dtype)
-        self.norm2 = _GNParams(out_ch)
+        self.norm1 = _GNParams(in_ch, out_ch)
+        self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
+                                                            dtype)
+        self.norm2 = _GNParams(out_ch, out_ch)
         self.conv2 = Conv3(out_ch, out_ch, dtype)
         self.shortcut = (
             ShortcutDense(in_ch, out_ch, dtype) if in_ch != out_ch else None
         )
         self.attn = AttnBlock(out_ch, dtype) if attn else None
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True,
+    def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(dropout(F.silu(self.norm2(h)), DROPOUT, deterministic,
-                               generator))
-        h = self.shortcut(x, h) if self.shortcut is not None else h + x
-        return self.attn(h) if self.attn is not None else h
+        pieces, x = _as_pieces(x)
+        h = self._stage1(x, pieces, deterministic)
+        h = self._stage_n(self.norm2, self.conv2, h, (), deterministic,
+                          generator)
+        return self._epilogue(x, h)
 
 
 class DownSample(nn.Module):

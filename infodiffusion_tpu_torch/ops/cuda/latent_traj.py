@@ -2,7 +2,9 @@
 plain version.
 
 Replaces ``infodiffusion_tpu/ops/pallas/latent_traj.py``
-(``latent_trajectory_pallas``, ``_kernel``), the bf16/f32 weight stream.
+(``latent_trajectory_pallas``, ``_kernel``): the bf16/f32 weight stream and
+the int8 one of the turbo tier (``quantize_packed_weights``: int8 W and a
+per-(layer, column) scale table Wsc, 13.1 MB per step at a_dim 256).
 Kernel: ``csrc/latent_traj.cu``. The plain version runs the same packed
 step as some 40 small PyTorch ops per step, 1000 steps; the kernel runs the
 step loop and the layer loop inside one launch. On the card the kernel is
@@ -16,8 +18,7 @@ per-step 1 + FiLM rows ``c_all`` (they depend on the timestep only), the
 
 The TPU kernel's Mosaic artifacts (the ``a_dim % 32`` gate and the lane
 padding) are not ported. The CUDA kernel's own limits: a_dim <= 1024, W in
-f32 or bf16. The int8 weight stream (``quantize_packed_weights``, the
-turbo tier) is not ported and int8 W is refused.
+f32, bf16 or int8 (with Wsc).
 """
 
 from __future__ import annotations
@@ -31,10 +32,24 @@ from infodiffusion_tpu_torch.diffusion.schedule import DEFAULT_ETA, Schedule
 from infodiffusion_tpu_torch.models.latent_unet import TIME_EMB_CHANNELS
 from infodiffusion_tpu_torch.nn.embeddings import timestep_embedding
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
+from infodiffusion_tpu_torch.ops.quant import _per_127
 
 EPS = 1e-5
 MAX_A_DIM = 1024
 _ROW_TILES = (1, 2, 4, 8)
+# W dtype codes of csrc/latent_traj.cu
+_W_CODES = {**_lib.DTYPE_CODES, torch.int8: 2}
+
+
+def quantize_packed_weights(packed: Dict[str, torch.Tensor]):
+    """The int8 weight stream of the turbo tier: per-(layer, output column)
+    symmetric int8 of the packed ``W`` [L, 5d, 4d], f32 divide, round half
+    to even, clip to +-127. Returns ``packed`` with ``W`` int8 and a new
+    ``Wsc`` [L, 4d] f32 scale table; zero padding stays exact zeros."""
+    W = packed["W"].to(torch.float32)
+    sc = _per_127(W.abs().amax(dim=1))
+    Wq = torch.clamp(torch.round(W / sc[:, None, :]), -127.0, 127.0)
+    return {**packed, "W": Wq.to(torch.int8), "Wsc": sc}
 
 
 def sampling_coefficients(sched: Schedule, idxs: torch.Tensor,
@@ -83,13 +98,15 @@ def reverse_coefficients(sched: Schedule, idxs: torch.Tensor):
 
 
 def latent_trajectory_reference(xT, coef, W, c_all, noises, bias, gamma,
-                                beta) -> torch.Tensor:
+                                beta, Wsc=None) -> torch.Tensor:
     """Plain PyTorch K4: S steps of the packed LatentUNet plus the affine
     update. xT [B, d]; coef [S, 3]; W [L, 5d, 4d]; c_all [S, L, 4d];
-    noises [S, B, d]; bias/gamma/beta [L, 4d]. Returns [B, d] f32."""
+    noises [S, B, d]; bias/gamma/beta [L, 4d]; Wsc [L, 4d] with int8 W
+    (the products then take bf16-rounded inputs and scale each column of
+    the f32 sum before the bias). Returns [B, d] f32."""
     d = xT.shape[1]
     L = W.shape[0]
-    wdtype = W.dtype
+    wdtype = torch.bfloat16 if W.dtype == torch.int8 else W.dtype
     Wf = W.to(torch.float32)
 
     def mm(a, w):  # inputs rounded to W's dtype, f32 accumulation
@@ -103,6 +120,8 @@ def latent_trajectory_reference(xT, coef, W, c_all, noises, bias, gamma,
                 z = mm(x, Wf[0, :d])
             else:
                 z = mm(torch.cat([hcur, x], dim=1), Wf[j])
+            if Wsc is not None:
+                z = z * Wsc[j]
             z = z + bias[j]
             if j < L - 1:
                 z = z * c_all[i, j]
@@ -126,16 +145,17 @@ def _row_tile(B: int, device) -> int:
 
 
 def latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,
-                           beta) -> torch.Tensor:
+                           beta, Wsc=None) -> torch.Tensor:
     """Launch K4 (arguments as for the plain version). Raises on what the
-    kernel does not take, int8 W included."""
+    kernel does not take."""
     _lib.check_tensor(xT, "xT", dtypes=(torch.float32,))
     B, d = xT.shape
-    if W.dtype not in _lib.DTYPE_CODES:
-        raise ValueError(
-            f"latent trajectory kernel takes f32 or bf16 W, got {W.dtype} "
-            "(the int8 weight stream is not ported)"
-        )
+    if W.dtype not in _W_CODES:
+        raise ValueError(f"latent trajectory kernel takes f32, bf16 or int8 "
+                         f"W, got {W.dtype}")
+    if (W.dtype == torch.int8) != (Wsc is not None):
+        raise ValueError("int8 W needs its scale table Wsc, and only int8 W "
+                         "takes one")
     if not 1 <= d <= MAX_A_DIM:
         raise ValueError(f"latent trajectory kernel takes a_dim <= "
                          f"{MAX_A_DIM}, got {d}")
@@ -150,21 +170,37 @@ def latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,
                       device=dev)
     for name, t in (("bias", bias), ("gamma", gamma), ("beta", beta)):
         _lib.check_tensor(t, name, shape=(L, h), dtypes=f32, device=dev)
+    if Wsc is not None:
+        _lib.check_tensor(Wsc, "Wsc", shape=(L, h), dtypes=f32, device=dev)
     out = torch.empty_like(xT)
     lib = _lib.library().lib
     with torch.cuda.device(dev):
         err = lib.infodiff_latent_traj(
             xT.data_ptr(), coef.data_ptr(), W.data_ptr(), c_all.data_ptr(),
             noises.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), out.data_ptr(), B, S, L, d, _row_tile(B, dev),
-            _lib.DTYPE_CODES[W.dtype], _lib.stream_handle(),
+            beta.data_ptr(), Wsc.data_ptr() if Wsc is not None else None,
+            out.data_ptr(), B, S, L, d, _row_tile(B, dev),
+            _W_CODES[W.dtype], _lib.stream_handle(),
         )
     _lib.check_launch(err, "latent_traj")
-    latent_trajectory_cuda.launches += 1
+    counter = (latent_trajectory_int8_cuda if Wsc is not None
+               else latent_trajectory_cuda)
+    counter.launches += 1
     return out
 
 
 latent_trajectory_cuda.launches = 0
+
+
+def latent_trajectory_int8_cuda(xT, coef, W, c_all, noises, bias, gamma,
+                                beta, Wsc) -> torch.Tensor:
+    """Launch K4's int8 weight stream (int8 W with its scale table Wsc);
+    :func:`latent_trajectory_cuda` counts such launches here."""
+    return latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,
+                                  beta, Wsc)
+
+
+latent_trajectory_int8_cuda.launches = 0
 
 
 def trajectory_inputs(
@@ -173,7 +209,8 @@ def trajectory_inputs(
     reverse: bool = False, noises: Optional[torch.Tensor] = None,
 ):
     """The kernel's operands, built as the JAX wrapper builds them:
-    ``(xT, coef, W, c_all, noises, B, G, Be)``, all on xT's device.
+    ``(xT, coef, W, c_all, noises, B, G, Be, Wsc)``, all on xT's device
+    (Wsc is None unless ``packed`` holds the int8 weight stream).
 
     The steps walk the full grid T-1..0 (1..T-2 when ``reverse``).
     ``noises`` [S, B, d] injects the per-step draws; otherwise they are
@@ -203,7 +240,7 @@ def trajectory_inputs(
             noises = torch.randn((S, B, d), generator=generator, device=dev)
     return (xT.to(torch.float32).contiguous(), coef, packed["W"],
             c_all.contiguous(), noises.to(torch.float32).contiguous(),
-            packed["B"], packed["G"], packed["Be"])
+            packed["B"], packed["G"], packed["Be"], packed.get("Wsc"))
 
 
 def latent_trajectory(packed, sched, xT, generator=None, **kw) -> torch.Tensor:

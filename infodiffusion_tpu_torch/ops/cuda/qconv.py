@@ -1,0 +1,319 @@
+"""K7, the fused [GN/FiLM affine -> SiLU -> int8 quantize -> 3x3 conv ->
+dequant], and the int8 x int8 -> int32 conv: CUDA kernels and their plain
+versions.
+
+Replaces ``infodiffusion_tpu/ops/pallas/qconv.py`` (``qconv_fused``, bodies
+``_kernel`` and ``_kernel_v2``) and the XLA int8 conv of
+``infodiffusion_tpu/ops/quant.py`` (``int8_conv``). Both are one kernel,
+``csrc/qconv.cu``: an int8 implicit-GEMM conv on the tensor cores with a
+chain prologue (K7: ``qconv_cuda``, and ``qconv_v2_cuda``, the pipelined
+body) or a chainless one (``int8_conv_cuda``, the tier's default route).
+What bounds it and what its design does about that: see the source.
+
+What K7 computes (NHWC):
+
+    h   = silu(concat(pieces) * A + B)   # A, B: f32 [B, Ctot] rows that
+                                         # collapse GN-apply and the FiLMs
+    q_i = clip(round(h_i / s_i), +-127)  # per-piece static scales
+    out = conv3x3(q, Kq) * sw + bias     # s32 sum, the act scales folded
+                                         # into Kq's input-channel slices
+
+The chain stays f32 up to the quantize (the default route casts the adagn
+output to the module dtype first), so the two routes differ by design by
+one-unit int8 flips; see ``qconv_fused``.
+
+The port's gate (``fused_qconv_supported``) keeps the JAX package's shape
+rules and drops the Mosaic ones (W <= 256, the VMEM tile planner); it adds
+one of its own: each piece's channels a multiple of 8 (the kernel stages
+16-byte vectors). The weight prep (``_fold_pack``) runs in plain torch at
+every call, as the JAX package runs it in XLA at every apply.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from infodiffusion_tpu_torch.ops.cuda import library as _lib
+from infodiffusion_tpu_torch.ops.quant import (
+    act_scale,
+    int8_conv_reference,
+    quantize_weight,
+)
+
+MAX_PIECES = 2
+# output codes of csrc/qconv.cu
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def use_fused_qconv(x: torch.Tensor) -> bool:
+    """Route the marked chains of a model on ``x``'s device through K7.
+    Opt-in with ``INFODIFF_ENABLE_FUSED_QCONV=1`` on a CUDA tensor;
+    ``INFODIFF_FORCE_FUSED_QCONV=1`` takes it on any device (the plain
+    version on the CPU); ``INFODIFF_DISABLE_FUSED_QCONV=1`` and
+    ``INFODIFF_DISABLE_PALLAS=1`` win over both."""
+    if os.environ.get("INFODIFF_DISABLE_FUSED_QCONV") == "1":
+        return False
+    if os.environ.get("INFODIFF_DISABLE_PALLAS") == "1":
+        return False
+    if os.environ.get("INFODIFF_FORCE_FUSED_QCONV") == "1":
+        return True
+    return os.environ.get("INFODIFF_ENABLE_FUSED_QCONV") == "1" and x.is_cuda
+
+
+def _use_v2() -> bool:
+    """``INFODIFF_QCONV_V2=1`` selects K7's pipelined body."""
+    return os.environ.get("INFODIFF_QCONV_V2") == "1"
+
+
+def fused_qconv_supported(pieces_shapes, out_ch: int) -> bool:
+    """Shape gate for K7: NHWC pieces (1 or 2) sharing B, H, W; Ctot and
+    Cout multiples of 32; each piece's channels a multiple of 8; H, W >= 4.
+    Covers every ResBlock conv site of the flagship and of the tiny test
+    UNet."""
+    if not pieces_shapes or len(pieces_shapes) > MAX_PIECES:
+        return False
+    lead = tuple(pieces_shapes[0][:-1])
+    if len(lead) != 3:
+        return False
+    if any(tuple(s[:-1]) != lead for s in pieces_shapes):
+        return False
+    cs = [s[-1] for s in pieces_shapes]
+    if sum(cs) % 32 or out_ch % 32 or any(c % 8 for c in cs):
+        return False
+    _, H, W = lead
+    return H >= 4 and W >= 4
+
+
+def _fold_pack(kernel: torch.Tensor, s_act: torch.Tensor, piece_channels):
+    """Fold the per-piece act scales into the HWIO kernel's input-channel
+    slices, quantize per output channel and pack as the JAX package does:
+    ``(kmat, sw)`` with ``kmat[dw*Ctot + c, dh*Cout + o] = kq[dh, dw, c, o]``
+    int8 [3 Ctot, 3 Cout] and sw f32 [Cout]."""
+    kf = kernel.to(torch.float32)
+    slices, o = [], 0
+    for i, c in enumerate(piece_channels):
+        slices.append(kf[:, :, o:o + c, :] * s_act[i])
+        o += c
+    keff = torch.cat(slices, dim=2)
+    kq, sw = quantize_weight(keff, (0, 1, 2))
+    ctot, cout = keff.shape[2], keff.shape[3]
+    return kq.permute(1, 2, 0, 3).reshape(3 * ctot, 3 * cout), sw
+
+
+def chain_q(pieces: Sequence[torch.Tensor], A: torch.Tensor,
+            B: torch.Tensor, s_act: torch.Tensor) -> torch.Tensor:
+    """K7's prologue in plain torch: the int8 values
+    ``clip(round(silu(concat(pieces) * A + B) / s_piece), +-127)`` (NHWC,
+    f32 chain)."""
+    qs, o = [], 0
+    for i, p in enumerate(pieces):
+        c = p.shape[-1]
+        h = (p.to(torch.float32) * A[:, None, None, o:o + c]
+             + B[:, None, None, o:o + c])
+        h = h * torch.sigmoid(h)
+        qs.append(torch.clamp(torch.round(h / s_act[i]), -127.0, 127.0))
+        o += c
+    return torch.cat(qs, dim=-1).to(torch.int8)
+
+
+def qconv_reference(pieces: Sequence[torch.Tensor], A: torch.Tensor,
+                    B: torch.Tensor, absmax: torch.Tensor,
+                    kernel: torch.Tensor, bias: torch.Tensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain K7: f32 chain, folded scales, exact s32 conv over the concat,
+    one dequant. pieces NHWC; A, B [B, Ctot]; absmax [n]; kernel HWIO f32;
+    bias [Cout]."""
+    pieces = list(pieces)
+    cs = [int(p.shape[-1]) for p in pieces]
+    s_act = act_scale(absmax.reshape(len(pieces)))
+    kf = kernel.to(torch.float32)
+    slices, o = [], 0
+    for i, c in enumerate(cs):
+        slices.append(kf[:, :, o:o + c, :] * s_act[i])
+        o += c
+    kq, sw = quantize_weight(torch.cat(slices, dim=2), (0, 1, 2))
+    y = int8_conv_reference(chain_q(pieces, A, B, s_act), kq, 1)
+    out = y.to(torch.float32) * sw + bias.to(torch.float32)
+    return out.to(out_dtype)
+
+
+def int8_conv_epilogue(y: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       partial: Optional[torch.Tensor] = None,
+                       out_dtype: Optional[torch.dtype] = None):
+    """The kernel's epilogue in plain torch, on an int32 conv ``y``: ``y``
+    itself when nothing is given, else ``f32(y)``, plus the bf16
+    ``partial`` when given, times ``scale`` plus ``bias`` when given, cast
+    to ``out_dtype`` (f32 by default)."""
+    if scale is None and partial is None and out_dtype is None:
+        return y
+    v = y.to(torch.float32)
+    if partial is not None:
+        v = partial.to(torch.float32) + v
+    if scale is not None:
+        v = v * scale + bias
+    return v.to(out_dtype or torch.float32)
+
+
+def _weights(kq_hwio: torch.Tensor, cin: int) -> torch.Tensor:
+    """HWIO int8 -> the kernel's [Cout, 9, Cin] (taps dh*3 + dw), with the
+    input channels zero-padded to ``cin``."""
+    w = kq_hwio.permute(3, 0, 1, 2).reshape(kq_hwio.shape[3], 9,
+                                            kq_hwio.shape[2])
+    return F.pad(w, (0, cin - w.shape[2])).contiguous()
+
+
+def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
+                   scale: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   partial: Optional[torch.Tensor] = None,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Launch the chainless int8 conv (padding 1) on NHWC int8 ``xq`` and
+    HWIO int8 ``kq``, with the epilogue of :func:`int8_conv_epilogue`.
+    Input channels are zero-padded to a multiple of 32 (exact). Raises on
+    what the kernel does not take."""
+    _lib.check_tensor(xq, "xq", dtypes=(torch.int8,))
+    dev = xq.device
+    if xq.ndim != 4 or kq.shape[:3] != (3, 3, xq.shape[3]):
+        raise ValueError(f"int8 conv takes NHWC x and HWIO 3x3 k, got "
+                         f"{tuple(xq.shape)} and {tuple(kq.shape)}")
+    if stride not in (1, 2):
+        raise ValueError(f"int8 conv takes stride 1 or 2, got {stride}")
+    B, H, W, C = xq.shape
+    cout = kq.shape[3]
+    cin = -(-C // 32) * 32
+    if cin != C:
+        xq = F.pad(xq, (0, cin - C))
+    w = _weights(kq, cin)
+    _lib.check_tensor(w, "kq", dtypes=(torch.int8,), device=dev)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    if scale is None and partial is None and out_dtype is None:
+        out_dtype = torch.int32
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _OUT_CODES:
+        raise ValueError(f"int8 conv writes f32, bf16 or int32, got "
+                         f"{out_dtype}")
+    f32 = (torch.float32,)
+    if scale is not None:
+        _lib.check_tensor(scale, "scale", shape=(cout,), dtypes=f32,
+                          device=dev)
+        _lib.check_tensor(bias, "bias", shape=(cout,), dtypes=f32, device=dev)
+    if partial is not None:
+        _lib.check_tensor(partial, "partial", shape=(B, Ho, Wo, cout),
+                          dtypes=(torch.bfloat16,), device=dev)
+    out = torch.empty((B, Ho, Wo, cout), dtype=out_dtype, device=dev)
+    lib = _lib.library().lib
+    with torch.cuda.device(dev):
+        err = lib.infodiff_int8_conv(
+            xq.data_ptr(), w.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            bias.data_ptr() if scale is not None else None,
+            partial.data_ptr() if partial is not None else None,
+            out.data_ptr(), _OUT_CODES[out_dtype], B, H, W, cin, cout,
+            stride, _lib.stream_handle(),
+        )
+    _lib.check_launch(err, "int8_conv")
+    int8_conv_cuda.launches += 1
+    return out
+
+
+int8_conv_cuda.launches = 0
+
+
+def _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
+                  pipelined: bool) -> torch.Tensor:
+    pieces = list(pieces)
+    if not 1 <= len(pieces) <= MAX_PIECES:
+        raise ValueError(f"K7 takes 1 or 2 pieces, got {len(pieces)}")
+    dtype = pieces[0].dtype
+    for i, p in enumerate(pieces):
+        _lib.check_tensor(p, f"piece {i}", dtypes=(dtype,),
+                          device=pieces[0].device)
+    if dtype not in _lib.DTYPE_CODES or out_dtype not in _lib.DTYPE_CODES:
+        raise ValueError(f"K7 takes f32/bf16 pieces and output, got {dtype} "
+                         f"and {out_dtype}")
+    dev = pieces[0].device
+    if not fused_qconv_supported([tuple(p.shape) for p in pieces],
+                                 int(sw.shape[0])):
+        raise ValueError(f"K7 does not take pieces "
+                         f"{[tuple(p.shape) for p in pieces]} -> {sw.shape[0]}")
+    Bt, H, W, _ = pieces[0].shape
+    cs = [int(p.shape[3]) for p in pieces]
+    ctot, cout = sum(cs), int(sw.shape[0])
+    w = kmat.reshape(3, ctot, 3, cout).permute(3, 2, 0, 1).reshape(
+        cout, 9, ctot).contiguous()
+    f32 = (torch.float32,)
+    _lib.check_tensor(w, "kmat", dtypes=(torch.int8,), device=dev)
+    for name, t in (("A", A), ("B", B)):
+        _lib.check_tensor(t, name, shape=(Bt, ctot), dtypes=f32, device=dev)
+    _lib.check_tensor(s_act, "s_act", shape=(len(pieces),), dtypes=f32,
+                      device=dev)
+    _lib.check_tensor(sw, "sw", dtypes=f32, device=dev)
+    _lib.check_tensor(bias, "bias", shape=(cout,), dtypes=f32, device=dev)
+    out = torch.empty((Bt, H, W, cout), dtype=out_dtype, device=dev)
+    lib = _lib.library().lib
+    with torch.cuda.device(dev):
+        err = lib.infodiff_qconv(
+            pieces[0].data_ptr(),
+            pieces[1].data_ptr() if len(pieces) > 1 else None,
+            cs[0], cs[1] if len(pieces) > 1 else 0, _lib.DTYPE_CODES[dtype],
+            A.data_ptr(), B.data_ptr(), s_act.data_ptr(), w.data_ptr(),
+            sw.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _lib.DTYPE_CODES[out_dtype], Bt, H, W, cout, int(pipelined),
+            _lib.stream_handle(),
+        )
+    _lib.check_launch(err, "qconv_v2" if pipelined else "qconv")
+    return out
+
+
+def qconv_cuda(pieces, A, B, s_act, kmat, sw, bias,
+               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch K7 (``_kernel``): CUDA pieces NHWC, A/B f32 [B, Ctot], the
+    act scales s_act [n], the packed ``(kmat, sw)`` of :func:`_fold_pack`,
+    f32 bias. Raises on what the kernel does not take."""
+    out = _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
+                        pipelined=False)
+    qconv_cuda.launches += 1
+    return out
+
+
+qconv_cuda.launches = 0
+
+
+def qconv_v2_cuda(pieces, A, B, s_act, kmat, sw, bias,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch K7's pipelined body (``_kernel_v2``); arguments and result
+    as :func:`qconv_cuda`, bitwise."""
+    out = _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
+                        pipelined=True)
+    qconv_v2_cuda.launches += 1
+    return out
+
+
+qconv_v2_cuda.launches = 0
+
+
+def qconv_fused(pieces: Sequence[torch.Tensor], A: torch.Tensor,
+                B: torch.Tensor, absmax: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``conv3x3(q8(silu(concat(pieces)*A + B)), q8(kernel)) * sw + bias``
+    in ``out_dtype``: K7 on CUDA pieces (the pipelined body under
+    ``INFODIFF_QCONV_V2=1``), :func:`qconv_reference` on CPU ones.
+    pieces NHWC [B, H, W, C_i]; A, B f32 [B, Ctot]; absmax [n]; kernel HWIO
+    f32 (folded, quantized and packed here); bias [Cout]."""
+    pieces = list(pieces)
+    if not pieces[0].is_cuda:
+        return qconv_reference(pieces, A, B, absmax, kernel, bias, out_dtype)
+    cs = [int(p.shape[-1]) for p in pieces]
+    s_act = act_scale(absmax.reshape(len(pieces))).contiguous()
+    kmat, sw = _fold_pack(kernel, s_act, cs)
+    run = qconv_v2_cuda if _use_v2() else qconv_cuda
+    return run([p.contiguous() for p in pieces],
+               A.to(torch.float32).contiguous(),
+               B.to(torch.float32).contiguous(), s_act, kmat,
+               sw.contiguous(), bias.to(torch.float32).contiguous(),
+               out_dtype)

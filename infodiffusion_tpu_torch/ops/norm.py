@@ -18,6 +18,7 @@ from typing import Sequence, Tuple
 import torch
 
 from infodiffusion_tpu_torch.ops.cuda.adagn import (
+    EPS,
     adagn_bwd_cuda,
     adagn_bwd_reference,
     adagn_cuda,
@@ -79,3 +80,41 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """Plain GroupNorm over the last axis (AdaGN with no FiLM)."""
     return adagn(x, num_groups, scale, bias)
+
+
+def group_norm_affine(
+    x,
+    num_groups: int,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    films: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm-apply and the FiLMs collapsed into per-(batch, channel)
+    f32 rows ``(A, B)`` [B, C] with ``adagn(x) == x * A + B`` up to f32
+    reassociation. ``x`` is one NHWC tensor or a list of skip-concat pieces
+    (joint statistics over the concat, from per-piece sums: the concat is
+    never built). One-pass statistics in f32, var clamped at 0, eps 1e-5.
+    The rows feed the fused quantize-conv kernel (``ops/cuda/qconv.py``).
+    Plain torch, as the JAX package leaves them to XLA."""
+    pieces = list(x) if isinstance(x, (tuple, list)) else [x]
+    B = pieces[0].shape[0]
+    C = sum(p.shape[-1] for p in pieces)
+    f32 = torch.float32
+    flat = [p.to(f32).reshape(B, -1, p.shape[-1]) for p in pieces]
+    n = flat[0].shape[1]
+    s1 = torch.cat([p.sum(dim=1) for p in flat], dim=-1)
+    s2 = torch.cat([p.square().sum(dim=1) for p in flat], dim=-1)
+    gs = C // num_groups
+    count = n * gs
+    mean = s1.reshape(B, num_groups, gs).sum(-1) / count
+    var = s2.reshape(B, num_groups, gs).sum(-1) / count - mean.square()
+    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + EPS)
+    mean_c = mean.repeat_interleave(gs, dim=1)
+    rstd_c = rstd.repeat_interleave(gs, dim=1)
+    A = rstd_c * scale.to(f32)[None, :]
+    Brow = bias.to(f32)[None, :] - mean_c * A
+    for fs, fb in films:
+        fs, fb = fs.to(f32), fb.to(f32)
+        A = A * (1.0 + fs)
+        Brow = Brow * (1.0 + fs) + fb
+    return A, Brow
