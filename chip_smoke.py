@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's generation and training paths on one NVIDIA GPU.
+"""Drive the torch port's generation, training, int8, vanilla / two-phase /
+VAE paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,6 +53,28 @@ on the card. Phases, each printing one line or a few, any failure raising:
    relative L2 against the bf16 slice from the same xT and a, launches.
 11. card against CPU, int8: f32, B=2, the quant state calibrated once on
    the CPU and carried across; latents T=1000 then DDIM-10 per route.
+12. the vanilla / two-phase slice's kernels, each against its plain
+   version in f32 and bf16 with CUDA-event times, bound and library time:
+   K6 (fused shortcut) at every shortcut site of one flagship InfoDiff
+   forward (13) and one vanilla UNet forward (15) at B=64, and the host
+   time per shortcut call on both routes at the vanilla sites; K5 (one
+   LatentUNet forward) at B=128 d=256; K2 at C=256 (N=256) and C=512
+   (N=64), B=64.
+13. the new paths at full width, bf16, random weights: the flagship
+   InfoDiff, the vanilla Diff (UNet ch 64, ch_mult (1,2,4,8), attention at
+   level 2) and the VAE (a_dim 256, (1,2,4,8)): two-phase sampling (T=1000,
+   split 500, B=32), vanilla DDIM-100 (B=64) on the default and the K6
+   route (in turns: default, K6, K6, default; a torch.profiler breakdown of
+   two steps of each), InfoDiff DDIM-100 on the K6 route, the pipeline's
+   reconstruct
+   (encode, 998 reverse steps, DDIM-100, B=32), the latent prior's
+   per-forward route (K5, T=1000 sampling + reverse, B=128) and VAE decode
+   (B=128, both routes): samples/s and launches per kernel and path, with
+   the exact launch counts asserted.
+14. card against CPU for those paths: f32, B=2, the same numpy weights,
+   inputs and noises, diffusion_steps 20 and split_step 10 (full widths):
+   two-phase sampling, InfoDiff reverse sampling, the latent per-forward
+   route (sampling and reverse) and VAE decode.
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
@@ -64,6 +87,8 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -79,20 +104,24 @@ from infodiffusion_tpu_torch.config import Config
 from infodiffusion_tpu_torch.diffusion.samplers import (
     DiffusionProcess,
     LatentDiffusionProcess,
+    TwoPhaseDiffusionProcess,
     strided_ddim_loop,
 )
 from infodiffusion_tpu_torch.diffusion.schedule import make_schedule
-from infodiffusion_tpu_torch.models.wrappers import Diff, InfoDiff
+from infodiffusion_tpu_torch.models.wrappers import Diff, InfoDiff, build_model
 from infodiffusion_tpu_torch.nn.attention import _GN
 from infodiffusion_tpu_torch.nn.blocks import (
     Conv3,
     PieceConv3,
+    ShortcutDense,
     _AffineChain,
     _GNParams,
 )
 from infodiffusion_tpu_torch.ops import quant as Q
+from infodiffusion_tpu_torch.ops.cuda import latent_mlp as K5
 from infodiffusion_tpu_torch.ops.cuda import latent_traj as K4
 from infodiffusion_tpu_torch.ops.cuda import qconv as K7
+from infodiffusion_tpu_torch.ops.cuda import shortcut_fused as K6
 from infodiffusion_tpu_torch.ops.cuda.adagn import (
     adagn_bwd_cuda,
     adagn_bwd_reference,
@@ -175,10 +204,25 @@ KERNELS = {
     "adagn": dict(fn=adagn_cuda, route="cuda",
                   source="infodiffusion_tpu_torch/csrc/adagn.cu",
                   replaces="infodiffusion_tpu/ops/pallas/adagn.py:90"),
+    # K2 is one kernel compiled per C; each C is a line of its own, counted
+    # from the wrapper's per-C launch count
     "attention": dict(fn=attention_cuda, route="cuda",
+                      count=lambda: attention_cuda.launches_by_c[128],
                       library="F.scaled_dot_product_attention",
                       source="infodiffusion_tpu_torch/csrc/attention.cu",
                       replaces="infodiffusion_tpu/ops/pallas/attention.py:49"),
+    "attention_c256": dict(
+        fn=attention_cuda, route="cuda",
+        count=lambda: attention_cuda.launches_by_c[256],
+        library="F.scaled_dot_product_attention",
+        source="infodiffusion_tpu_torch/csrc/attention.cu",
+        replaces="infodiffusion_tpu/ops/pallas/attention.py:49 (C=256)"),
+    "attention_c512": dict(
+        fn=attention_cuda, route="cuda",
+        count=lambda: attention_cuda.launches_by_c[512],
+        library="F.scaled_dot_product_attention",
+        source="infodiffusion_tpu_torch/csrc/attention.cu",
+        replaces="infodiffusion_tpu/ops/pallas/attention.py:49 (C=512)"),
     "latent_traj": dict(fn=K4.latent_trajectory_cuda, route="cuda",
                         source="infodiffusion_tpu_torch/csrc/latent_traj.cu",
                         replaces="infodiffusion_tpu/ops/pallas/"
@@ -217,16 +261,29 @@ KERNELS = {
         source="infodiffusion_tpu_torch/csrc/latent_traj.cu",
         replaces="infodiffusion_tpu/ops/pallas/latent_traj.py:390 with "
                  ":89 (quantize_packed_weights)"),
+    "shortcut_fused": dict(
+        fn=K6.shortcut_fused_cuda, route="cuda",
+        library="torch.addmm(h + bias, concat(pieces), W) (the bias add "
+                "and the concat outside the timed window)",
+        source="infodiffusion_tpu_torch/csrc/shortcut_fused.cu",
+        replaces="infodiffusion_tpu/ops/pallas/shortcut_fused.py:159"),
+    "latent_mlp": dict(
+        fn=K5.latent_unet_forward_cuda, route="cuda",
+        source="infodiffusion_tpu_torch/csrc/latent_mlp.cu",
+        replaces="infodiffusion_tpu/ops/pallas/latent_mlp.py:201"),
 }
 
 
 def reset_launches():
     for spec in KERNELS.values():
         spec["fn"].launches = 0
+    attention_cuda.launches_by_c.update(
+        dict.fromkeys(attention_cuda.launches_by_c, 0))
 
 
 def read_launches():
-    return {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    return {name: spec["count"]() if "count" in spec else spec["fn"].launches
+            for name, spec in KERNELS.items()}
 
 
 class Bound:
@@ -327,7 +384,7 @@ def flagship(dtype, device, seed=0):
                  diffusion_steps=T, deterministic=True).with_dataset_config()
     img = InfoDiff(T=T, a_dim=A_DIM, shape=cfg.shape,
                    unets_channels=cfg.unets_channels, dtype=dtype)
-    lat = Diff(T=T, shape=cfg.latent_shape, dtype=dtype)
+    lat = Diff(T=T, shape=cfg.latent_shape, is_latent=True, dtype=dtype)
     init_weights_(img, seed)
     init_weights_(lat, seed + 1)
     return cfg, img.to(device).eval(), lat.to(device).eval()
@@ -493,14 +550,21 @@ def check_latent_traj(lat_models, device, reps, results):
         results.time("latent_traj", tag, km, pm, bnd)
 
 
+def latent_w_read(d: int, L: int) -> int:
+    """Elements of the packed W [L, 5d, 4d] that K4 and K5 read: layer 0's
+    rows for x [d, 4d], layers 1 to L-2 whole [5d, 4d], the last layer's
+    eps columns [5d, d]."""
+    return d * 4 * d + (L - 2) * 5 * d * 4 * d + 5 * d * d
+
+
 def latent_traj_work(W):
     """(operations, bytes) of one K4 call at B=BATCH, d=A_DIM, S=T: layer 0
     is [B, d] x [d, 4d], layers 1-8 [B, 5d] x [5d, 4d], layer 9
-    [B, 5d] x [5d, d]; it reads W (and Wsc), the per-step FiLM rows and
-    noise once."""
+    [B, 5d] x [5d, d]; it reads those parts of W once, the per-step FiLM
+    rows and noise once."""
     B, d, S, L = BATCH, A_DIM, T, W.shape[0]
-    ops = 2 * B * S * (4 * d * d + 8 * 20 * d * d + 5 * d * d)
-    nbytes = (W.numel() * W.element_size() + S * L * 4 * d * 4
+    ops = 2 * B * S * latent_w_read(d, L)
+    nbytes = (latent_w_read(d, L) * W.element_size() + S * L * 4 * d * 4
               + S * B * d * 4 + 2 * B * d * 4 + 4 * L * 4 * d * 4)
     return ops, nbytes
 
@@ -657,14 +721,13 @@ def train_run(size, batch, steps, device, smi):
     state, _ = step(state, x, 0)  # warm-up: cuDNN plans, first launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, metrics = step(state, x, 0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -1110,15 +1173,456 @@ def int8_card_vs_cpu(device):
             raise AssertionError(f"int8 card vs CPU {what}: {e:.3e} over "
                                  f"{TOL['slice_int8']:.0e}")
 
+# ------------------------------------- the vanilla / two-phase / VAE slice
+
+# the vanilla / VAE widths: ch 64, pick_ch_mult('vanilla' | 'vae', 64)
+SLICE_BATCH = {"two_phase": 32, "ddim": 64, "reconstruct": 32, "latent": 128,
+               "vae": 128, "kernels": 64}
+DDIM_STEPS = 100
+SPLIT_STEP = 500
+# phase 14's depth cut (the widths stay full)
+SMALL_T, SMALL_SPLIT = 20, 10
+K6_ROUTE = {"INFODIFF_ENABLE_FUSED_SHORTCUT": "1"}
+K5_ROUTE = {"INFODIFF_ENABLE_FUSED_LATENT": "1"}
+
+
+def slice_cfg(model: str, **kw) -> Config:
+    kw = {"diffusion_steps": T, "deterministic": True,
+          "split_step": SPLIT_STEP, **kw}
+    return Config(model=model, dataset="celeba", a_dim=A_DIM,
+                  **kw).with_dataset_config()
+
+
+def slice_model(model: str, dtype, device, seed=0, **kw):
+    """``build_model`` for ``model`` ('diff', 'vanilla' or 'vae') at the
+    CelebA-64 widths, xavier weights from a numpy seed."""
+    cfg = slice_cfg(model, **kw)
+    return cfg, init_weights_(build_model(cfg, dtype=dtype, device=device),
+                              seed).eval()
+
+
+def shortcut_sites(model, run):
+    """(H, W, piece channels, N) of every shortcut call that ``run()``, one
+    forward of ``model``, makes, in order."""
+    sites = []
+
+    def hook(mod, args):
+        x, h = args[0], args[1]
+        pieces = args[2] if len(args) > 2 and args[2] is not None else [x]
+        sites.append((h.shape[2], h.shape[3],
+                      tuple(p.shape[1] for p in pieces), h.shape[1]))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, ShortcutDense)]
+    with torch.no_grad():
+        run()
+    for h in handles:
+        h.remove()
+    return sites
+
+
+def forward_sites(device):
+    """{model: shortcut sites of one forward} for the flagship InfoDiff's
+    backbone, the vanilla UNet and the VAE's decoder (B=1, f32)."""
+    x = torch.zeros(1, SIZE, SIZE, 3, device=device)
+    t = torch.zeros(1, dtype=torch.long, device=device)
+    a = torch.zeros(1, A_DIM, device=device)
+    _, img, _ = flagship(torch.float32, device)
+    _, van = slice_model("vanilla", torch.float32, device)
+    _, vae = slice_model("vae", torch.float32, device)
+    return {"infodiff": shortcut_sites(img, lambda: img(x, t, a)),
+            "vanilla": shortcut_sites(van, lambda: van(x, t)),
+            "vae_decoder": shortcut_sites(vae, lambda: vae.decode(a))}
+
+
+def check_shortcut(sites, device, reps, results):
+    """K6 at every shortcut site of one InfoDiff and one vanilla UNet
+    forward, B=64, against its plain version; times beside torch.addmm over
+    the concatenated pieces."""
+    g = torch.Generator(device=device).manual_seed(21)
+    B = SLICE_BATCH["kernels"]
+    for tag, dtype in DTYPES.items():
+        ms = plain_ms = lib_ms = 0.0
+        bnd = Bound()
+        e = torch.finfo(dtype).bits // 8
+        for hh, ww, cs, n in sites:
+            M, ctot = B * hh * ww, sum(cs)
+            h = torch.randn(B, hh, ww, n, generator=g, device=device).to(dtype)
+            pieces = [torch.randn(B, hh, ww, c, generator=g, device=device)
+                      .to(dtype) for c in cs]
+            weight = (torch.randn(n, ctot, generator=g, device=device)
+                      / math.sqrt(ctot))
+            bias = 0.1 * torch.randn(n, generator=g, device=device)
+            args = (h, pieces, weight, bias)
+            got = K6.shortcut_fused_cuda(*args)
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, K6.shortcut_fused_reference(*args))
+            what = f"{hh}x{ww} {list(cs)}->{n}"
+            results.record("shortcut_fused", f"{tag} {what}", abs_e, rel_e,
+                           TOL[tag])
+            del got
+            km, pm = paired_ms(lambda: K6.shortcut_fused_cuda(*args),
+                               lambda: K6.shortcut_fused_reference(*args),
+                               reps)
+            cat = torch.cat(pieces, -1).reshape(M, ctot)
+            hb = (h.float() + bias).to(dtype).reshape(M, n)
+            wt = weight.to(dtype).T
+            lm = cuda_ms(lambda: torch.addmm(hb, cat, wt), reps)
+            ops = 2 * M * ctot * n
+            b_ms = bnd.add(ops, (M * (ctot + 2 * n) + ctot * n) * e + 4 * n,
+                           PEAK[tag])
+            ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
+            print(f"[K6 shortcut] {tag} B={B} {what}: rel err {rel_e:.2e} "
+                  f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms, "
+                  f"bound {b_ms:.4f} ms, torch.addmm {lm:.4f} ms")
+            del h, pieces, cat, hb
+        print(f"[K6 shortcut] {tag}: all {len(sites)} sites once: {ms:.4f} "
+              f"ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} ms "
+              f"({bnd.by}), torch.addmm {lib_ms:.4f} ms")
+        results.time("shortcut_fused", tag, ms, plain_ms, bnd, lib_ms)
+
+
+def shortcut_host_us(sites, device, reps=50):
+    """Host microseconds per ``ShortcutDense`` call at each of ``sites``,
+    bf16, B=2 (small enough that the card keeps ahead of the host, so the
+    host clock reads the host's own cost), on the default and the K6 route
+    in turns (default, K6, K6, default), beside the per-call weight copy
+    an earlier K6 wrapper made (the Flax-layout transpose, cast and made
+    contiguous)."""
+    bf16, B = torch.bfloat16, 2
+    g = torch.Generator(device=device).manual_seed(24)
+    calls = []
+    for hh, ww, cs, n in sites:
+        mod = ShortcutDense(sum(cs), n, bf16).to(device)
+        nchw = lambda c: torch.randn(  # noqa: E731
+            B, hh, ww, c, generator=g, device=device).to(bf16).permute(
+                0, 3, 1, 2)
+        pieces = [nchw(c) for c in cs]
+        x = torch.cat(pieces, 1) if len(pieces) > 1 else pieces[0]
+        calls.append((mod, x, nchw(n), pieces if len(pieces) > 1 else None))
+
+    def per_call_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / (reps * len(calls)) * 1e6
+
+    def shortcuts():
+        for mod, x, h, pieces in calls:
+            mod(x, h, pieces)
+
+    def copies():
+        for mod, *_ in calls:
+            mod.weight.T.to(bf16).contiguous()
+
+    us = {"default": [], "k6": []}
+    with torch.no_grad():
+        for route in ("default", "k6", "k6", "default"):
+            with env_set(K6_ROUTE if route == "k6" else {}):
+                us[route].append(per_call_us(shortcuts))
+        copy_us = per_call_us(copies)
+    print(f"[K6 host] bf16 B={B}, {len(calls)} sites, host us per shortcut "
+          f"call, in turns: default {us['default'][0]:.2f}, K6 "
+          f"{us['k6'][0]:.2f}, K6 {us['k6'][1]:.2f}, default "
+          f"{us['default'][1]:.2f}; the earlier wrapper's per-call weight "
+          f"transpose copy alone {copy_us:.2f}")
+
+
+def latent_mlp_work(W):
+    """(operations, bytes) of one K5 call at B=BATCH, d=A_DIM: the L layer
+    products (as K4's per step) and the L-1 FiLM products [B, d] x [d, 4d]
+    (the last layer has none). It reads what those need once: the parts of
+    W of ``latent_w_read``, Wc of layers 0 to L-2, the f32 rows (the bias of
+    the last layer's d columns; no FiLM bias, gamma or beta there) and x,
+    s; it writes out [B, d]."""
+    B, d, L = BATCH, A_DIM, W.shape[0]
+    w_elems = latent_w_read(d, L) + (L - 1) * d * 4 * d
+    ops = 2 * B * w_elems
+    rows = (L - 1) * 4 * d * 4 + d
+    nbytes = w_elems * W.element_size() + rows * 4 + 3 * B * d * 4
+    return ops, nbytes
+
+
+def check_latent_mlp(lat_models, device, reps, results):
+    g = torch.Generator(device=device).manual_seed(22)
+    for tag, model in lat_models.items():
+        packed = pack_latent_unet_params(model.backbone, A_DIM,
+                                         dtype=DTYPES[tag])
+        x = torch.randn(BATCH, A_DIM, generator=g, device=device)
+        t = torch.randint(0, T, (BATCH,), generator=g, device=device)
+        s = K5.silu_time_embedding(packed, t).contiguous()
+        args = (x, s, packed["W"], packed["Wc"], packed["B"], packed["Bc"],
+                packed["G"], packed["Be"])
+        got = K5.latent_unet_forward_cuda(*args)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, K5.latent_unet_forward_reference(*args))
+        km, pm = paired_ms(lambda: K5.latent_unet_forward_cuda(*args),
+                           lambda: K5.latent_unet_forward_reference(*args),
+                           reps)
+        bnd = Bound()
+        bnd.add(*latent_mlp_work(packed["W"]), PEAK[tag])
+        print(f"[K5 latent_mlp] {tag} weights, B={BATCH} d={A_DIM}, t per "
+              f"row: rel err {rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs "
+              f"plain {pm:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by})")
+        results.record("latent_mlp", tag, abs_e, rel_e, TOL["traj_" + tag])
+        results.time("latent_mlp", tag, km, pm, bnd)
+
+
+def check_attention_wide(device, reps, results):
+    """K2 at the vanilla UNet's and the VAE's C=256 (N=256) and C=512
+    (N=64), B=64."""
+    g = torch.Generator(device=device).manual_seed(23)
+    B = SLICE_BATCH["kernels"]
+    for c, n in ((256, 256), (512, 64)):
+        name = f"attention_c{c}"
+        for tag, dtype in DTYPES.items():
+            e = torch.finfo(dtype).bits // 8
+            q, k, v = (torch.randn(B, n, c, generator=g, device=device)
+                       .to(dtype) for _ in range(3))
+            got = attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
+            results.record(name, tag, abs_e, rel_e, TOL[tag])
+            km, pm = paired_ms(lambda: attention_cuda(q, k, v),
+                               lambda: attention_reference(q, k, v), reps)
+            lm = sdpa_ms(q, k, v, reps)
+            bnd = Bound()
+            bnd.add(4 * B * n * n * c, 4 * B * n * c * e, PEAK[tag])
+            print(f"[K2 attention] {tag} B={B} N={n} C={c}: rel err "
+                  f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
+                  f"{pm:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by}), "
+                  f"F.scaled_dot_product_attention {lm:.4f} ms")
+            results.time(name, tag, km, pm, bnd, lm)
+
+
+def timed(run):
+    """(result, host seconds, launches) of ``run()``, counted from zero,
+    synchronised on both ends."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def expect(path, launches, want):
+    """Fail unless each kernel in ``want`` launched exactly that often."""
+    wrong = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if wrong:
+        raise AssertionError(f"{path}: launches (got, want) {wrong}")
+
+
+def report(path, out, n, dt, launches, smi, what="samples"):
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{path}: non-finite output")
+    moved = {k: v for k, v in launches.items() if v}
+    print(f"[{path}] B={n}: {dt:.3f} s = {n / dt:.2f} {what}/s (host "
+          f"clock, synchronised; {smi}); out {tuple(out.shape)}, std "
+          f"{out.float().std().item():.3f}; launches {moved}")
+
+
+def profile_steps(run, label, smi, top=6):
+    """Device time against wall time of ``run()`` (after one warm-up), and
+    the kernels that took the most of it, from torch.profiler: the device
+    events (kernels, copies), not the host ranges that also carry device
+    time (an autograd Function's range holds its kernel's time again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stats = [(e.self_device_time_total / 1e3, e.key)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    device = sum(ms for ms, _ in stats)
+    head = ", ".join(f"{key[:40]} {ms:.2f}" for ms, key in
+                     sorted(stats, reverse=True)[:top] if ms > 0)
+    print(f"[profile] {label}: device {device:.2f} ms in {wall:.2f} ms wall "
+          f"(device idle {1 - device / wall:.0%}; {smi}); most device ms: "
+          f"{head}")
+
+
+def slice_paths(device, smi, sites):
+    """Phase 13: each new path once at full width, bf16; returns each
+    path's launch counts."""
+    bf16 = torch.bfloat16
+    cfg, img, lat = flagship(bf16, device)
+    cfg = dataclasses.replace(cfg, split_step=SPLIT_STEP)
+    vcfg, van = slice_model("vanilla", bf16, device, seed=2)
+    _, vae = slice_model("vae", bf16, device, seed=3)
+    gen = torch.Generator(device=device)
+    n_img, n_van, n_dec = (len(sites[k]) for k in
+                           ("infodiff", "vanilla", "vae_decoder"))
+    # K2 launches per forward: 2 down + 3 up blocks attend at level 2 and
+    # the first middle block at level 3
+    attn_lvl, attn_mid = 5, 1
+    by_path = {}
+    B = SLICE_BATCH["two_phase"]
+    for model, c in ((img, cfg), (van, vcfg)):  # warm-up: cuDNN plans
+        DiffusionProcess(c, model).sampling(gen.manual_seed(0), B,
+                                            num_steps=2)
+    two = TwoPhaseDiffusionProcess(cfg, img, van)
+    out, dt, n = timed(lambda: two.sampling(gen.manual_seed(31), B))
+    report("two_phase", out, B, dt, n, smi)
+    uncond = SPLIT_STEP + 1
+    expect("two_phase", n, {
+        "attention": (T - uncond) * (attn_lvl + attn_mid),
+        "attention_c256": uncond * attn_lvl, "attention_c512": uncond,
+        "shortcut_fused": 0})
+    by_path["two_phase"] = n
+
+    B = SLICE_BATCH["ddim"]
+    xT = torch.randn((B, SIZE, SIZE, 3), generator=gen.manual_seed(32),
+                     device=device)
+    a = torch.randn((B, A_DIM), generator=gen.manual_seed(33), device=device)
+    routes = {"vanilla_ddim": ({}, 0), "vanilla_ddim_k6": (K6_ROUTE, n_van)}
+    proc = DiffusionProcess(vcfg, van)
+    proc.sampling(xT=xT, num_steps=2)
+    rates = {route: [] for route in routes}
+    # in turns, default, K6, K6, default: the host's spread between calls
+    # is larger than the difference; the first run of each route is counted
+    for route in ("vanilla_ddim", "vanilla_ddim_k6", "vanilla_ddim_k6",
+                  "vanilla_ddim"):
+        env, k6 = routes[route]
+        with env_set(env):
+            out, dt, n = timed(lambda: proc.sampling(xT=xT,
+                                                     num_steps=DDIM_STEPS))
+        rates[route].append(B / dt)
+        if route in by_path:
+            continue
+        report(route, out, B, dt, n, smi)
+        expect(route, n, {"attention_c256": DDIM_STEPS * attn_lvl,
+                          "attention_c512": DDIM_STEPS,
+                          "shortcut_fused": DDIM_STEPS * k6})
+        by_path[route] = n
+        with env_set(env):
+            profile_steps(lambda: proc.sampling(xT=xT, num_steps=2),
+                          f"{route} B={B}, 2 DDIM steps", smi)
+    print("[vanilla_ddim turns] samples/s, default, K6, K6, default: "
+          + ", ".join(f"{r:.2f}" for r in (rates["vanilla_ddim"][0],
+                                            *rates["vanilla_ddim_k6"],
+                                            rates["vanilla_ddim"][1])))
+    with env_set(K6_ROUTE):
+        proc = DiffusionProcess(cfg, img)
+        proc.sampling(xT=xT, a=a, num_steps=2)
+        out, dt, n = timed(lambda: proc.sampling(xT=xT, a=a,
+                                                 num_steps=DDIM_STEPS))
+    report("infodiff_ddim_k6", out, B, dt, n, smi)
+    expect("infodiff_ddim_k6", n, {
+        "attention": DDIM_STEPS * (attn_lvl + attn_mid),
+        "shortcut_fused": DDIM_STEPS * n_img})
+    by_path["infodiff_ddim_k6"] = n
+
+    B = SLICE_BATCH["reconstruct"]
+    x0 = torch.from_numpy(np.random.RandomState(34).uniform(
+        -1, 1, (B, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    pipe = InfoDiffusionPipeline(cfg, img)
+    out, dt, n = timed(lambda: pipe.reconstruct(x0, steps=DDIM_STEPS))
+    report("reconstruct", out, B, dt, n, smi)
+    # the Encoder attends at level 2 (C=128) too: 5 + 1 per encode
+    expect("reconstruct", n, {
+        "attention": (1 + T - 2 + DDIM_STEPS) * (attn_lvl + attn_mid),
+        "shortcut_fused": 0})
+    by_path["reconstruct"] = n
+
+    B = SLICE_BATCH["latent"]
+    with env_set(K5_ROUTE):
+        latent = LatentDiffusionProcess(cfg, lat)
+        if not latent.per_forward:
+            raise AssertionError("latent_fwd: the per-forward route is off")
+
+        def latent_run():
+            z = latent.sampling(gen.manual_seed(35), sampling_number=B)
+            return torch.cat([z, latent.reverse_sampling(z)])
+
+        out, dt, n = timed(latent_run)
+    report("latent_fwd", out, B, dt, n, smi, "latents (sampling + reverse)")
+    expect("latent_fwd", n, {"latent_mlp": T + T - 2, "latent_traj": 0})
+    by_path["latent_fwd"] = n
+
+    B = SLICE_BATCH["vae"]
+    a = torch.randn((B, A_DIM), generator=gen.manual_seed(36), device=device)
+    for route, env, k6 in (("vae_decode", {}, 0),
+                           ("vae_decode_k6", K6_ROUTE, n_dec)):
+        with env_set(env), torch.no_grad():
+            vae.decode(a)
+            out, dt, n = timed(lambda: vae.decode(a))
+        report(route, out, B, dt, n, smi)
+        expect(route, n, {"attention_c256": attn_lvl, "attention_c512": 1,
+                          "shortcut_fused": k6})
+        by_path[route] = n
+    return by_path
+
+
+def slice_card_vs_cpu(device):
+    """Phase 14: the new paths on the card against the CPU, f32, B=2, the
+    same weights, inputs and noises; T=20, split 10."""
+    n = 2
+    rng = np.random.RandomState(60)
+    xT = torch.from_numpy(rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
+    a = torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32))
+    noises = torch.from_numpy(
+        rng.randn(SMALL_T, n, SIZE, SIZE, 3).astype(np.float32))
+    lat_xT = torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32))
+    lat_noises = torch.from_numpy(
+        rng.randn(SMALL_T, n, A_DIM).astype(np.float32))
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (n, SIZE, SIZE, 3))
+                          .astype(np.float32))
+    cpu = torch.device("cpu")
+    small = dict(diffusion_steps=SMALL_T, split_step=SMALL_SPLIT,
+                 deterministic=False)
+    cfg, img = slice_model("diff", torch.float32, cpu, seed=61, **small)
+    vcfg, van = slice_model("vanilla", torch.float32, cpu, seed=62, **small)
+    _, vae = slice_model("vae", torch.float32, cpu, seed=63, **small)
+    lat = init_weights_(Diff(T=SMALL_T, shape=cfg.latent_shape,
+                             is_latent=True), 64).eval()
+    outs = {}
+    for key, dev in (("cpu", cpu), ("card", device)):
+        if key == "card":
+            img, van, vae, lat = (copy.deepcopy(m).to(dev)
+                                  for m in (img, van, vae, lat))
+        with torch.no_grad():
+            enc_a = InfoDiffusionPipeline(cfg, img).encode(x0.to(dev))
+        with env_set({"INFODIFF_FORCE_FUSED_LATENT": "1"}):
+            latent = LatentDiffusionProcess(cfg, lat)
+            z = latent.sampling(xT=lat_xT.to(dev), noises=lat_noises.to(dev))
+            zr = latent.reverse_sampling(z)
+        with torch.no_grad():
+            dec = vae.decode(a.to(dev))
+        outs[key] = {
+            "two_phase": TwoPhaseDiffusionProcess(cfg, img, van).sampling(
+                xT=xT.to(dev), a=a.to(dev), noises=noises.to(dev)),
+            "reverse_sampling": DiffusionProcess(cfg, img).reverse_sampling(
+                x0.to(dev), enc_a),
+            "latent_fwd": z, "latent_fwd_reverse": zr, "vae_decode": dec}
+    errs = []
+    for what, want in outs["cpu"].items():
+        abs_e, rel_e = rel_err(outs["card"][what], want)
+        errs.append(f"{what} {rel_e:.2e}")
+        if not rel_e <= TOL["slice"]:
+            raise AssertionError(f"slice card vs CPU {what}: {rel_e:.3e} "
+                                 f"over {TOL['slice']:.0e}")
+    print(f"[slice card vs CPU] f32 B={n}, T={SMALL_T}, split {SMALL_SPLIT}, "
+          f"the same weights and draws, full widths: max abs error over max "
+          f"abs: {'; '.join(errs)} (bar {TOL['slice']:.0e})")
+
+
 QUEUED = (
     # (kernel, shape, operations, bytes, rate): the TPU kernels still to
     # port, at the shape the main path would give them, bf16
     ("K3c online flash forward", "B=8 N=16384 C=128 (512px)",
      4 * 8 * 16384 ** 2 * 128, 4 * 8 * 16384 * 128 * 2, "bf16"),
-    ("K5 LatentUNet forward", "B=128 d=256, one step",
-     2 * 128 * 169 * 256 ** 2, 10 * 5 * 256 * 4 * 256 * 2, "bf16"),
-    ("K6 fused shortcut", "B=128 64x64, pieces 128+64 -> 64",
-     2 * 128 * 4096 * 192 * 64, 128 * 4096 * (192 + 64 + 64) * 2, "bf16"),
     ("K2' tiled attention", "B=128 N=256 C=128",
      4 * 128 * 256 ** 2 * 128, 4 * 128 * 256 * 128 * 2, "bf16"),
 )
@@ -1171,8 +1675,7 @@ def end_to_end(device, smi):
     # warm-up (cuDNN plans, the first launches) outside the counted run
     run_slice(cfg, img, lat, BATCH, gen.manual_seed(10), None, steps=2)
     torch.cuda.synchronize()
-    for spec in KERNELS.values():
-        spec["fn"].launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     latents = LatentDiffusionProcess(cfg, lat).sampling(
         gen.manual_seed(11), sampling_number=BATCH)
@@ -1182,7 +1685,7 @@ def end_to_end(device, smi):
         BATCH, a=latents, steps=100, generator=gen.manual_seed(12))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {name: spec["fn"].launches for name, spec in KERNELS.items()}
+    launches = read_launches()
     if tuple(images.shape) != (BATCH, SIZE, SIZE, 3):
         raise AssertionError(f"images {tuple(images.shape)}")
     if tuple(latents.shape) != (BATCH, A_DIM):
@@ -1227,7 +1730,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-11) to run after 1 "
+                        help="comma-separated phases (3-14) to run after 1 "
                              "and 2; default all, which also prints the "
                              "kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -1281,6 +1784,23 @@ def main() -> None:
         torch.cuda.empty_cache()
     if run(11):
         int8_card_vs_cpu(device)
+    if run(12) or run(13):
+        sites = forward_sites(device)
+    if run(12):
+        check_shortcut(sites["infodiff"] + sites["vanilla"], device, 10,
+                       results)
+        shortcut_host_us(sites["vanilla"], device)
+        lat_models = {tag: flagship(dtype, device)[2]
+                      for tag, dtype in DTYPES.items()}
+        check_latent_mlp(lat_models, device, 10, results)
+        del lat_models
+        check_attention_wide(device, 10, results)
+        torch.cuda.empty_cache()
+    if run(13):
+        by_path.update(slice_paths(device, smi, sites))
+        torch.cuda.empty_cache()
+    if run(14):
+        slice_card_vs_cpu(device)
     if not only:
         queued_bounds()
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))

@@ -5,18 +5,23 @@ and class names so each counterpart is found at once:
 
 - ``nn``: time embeddings, the AdaGN ResBlocks, attention, resampling and
   the latent MLP block.
-- ``models``: ``AuxiliaryUNet``, ``Encoder``, ``LatentUNet`` and the
-  ``InfoDiff`` (eps prediction and the training loss) / ``Diff`` wrappers.
-- ``diffusion``: the schedule, its step algebra and the samplers.
+- ``models``: ``UNet``, ``AuxiliaryUNet``, ``BottleneckAuxUNet``,
+  ``Encoder``, ``Decoder``, ``LatentUNet`` and the ``InfoDiff`` /
+  ``Diff`` (vanilla or latent) / ``VAE`` wrappers with their losses;
+  ``build_model`` picks one from a ``Config`` and puts it on the card.
+- ``diffusion``: the schedule, its step algebra and the samplers (full
+  grid, DDIM-N, reverse DDIM, two-phase).
 - ``ops``: GroupNorm+FiLM (forward and backward), attention, flash
-  attention (forward and backward) and the latent trajectory, each a
-  hand-written Hopper kernel (``csrc/``, bound in ``ops/cuda``) beside its
-  plain PyTorch version, and the MMD. A CPU tensor takes the plain
+  attention (forward and backward), the latent trajectory, one latent
+  MLP forward and the fused ResBlock shortcut, each a hand-written Hopper
+  kernel (``csrc/``, bound in ``ops/cuda``) beside its plain PyTorch
+  version, the int8 tier and the MMD. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises.
 - ``train``: the clip + AdamW optimizer, the LR schedule, the train state
   and the train step.
 - ``utils``: the prior draws.
-- ``pipelines``: ``InfoDiffusionPipeline.generate``.
+- ``pipelines``: ``InfoDiffusionPipeline`` (generate, encode, invert,
+  reconstruct, traverse, interpolate).
 - ``interop``: ``from_jax_params`` moves a Flax param tree into the port's
   modules, which carry the same names.
 

@@ -1,4 +1,4 @@
-"""Experiment configuration for the port's generation and training slices
+"""Experiment configuration for the port's slices
 (JAX counterpart: ``infodiffusion_tpu/config.py``).
 
 The fields the ported slices read, with the JAX ``Config``'s names and
@@ -32,6 +32,7 @@ DATASET_CONFIG = {
 
 @dataclasses.dataclass
 class Config:
+    r_seed: int = 0
     model: str = "diff"  # {diff, vae, vanilla}
     prior: str = "regular"  # {regular, 10mix, roll}
     kld_weight: float = 0.0
@@ -51,6 +52,11 @@ class Config:
     beta1: float = 1e-5
     betaT: float = 1e-2
     diffusion_steps: int = 1000
+    # two-phase sampling: steps n <= split_step (counted from xT) run the
+    # unconditional model
+    split_step: int = 500
+    is_latent: bool = False
+    is_bottleneck: bool = False
     # sampler steps; None => the full T grid
     sampling_steps: Optional[int] = None
     # bf16 activations in the backbone (schedule math stays f32)
@@ -60,6 +66,16 @@ class Config:
     # inference tier of the samplers: '' (INFODIFF_TURBO decides), 'off'
     # or one of ops.quant.MODES
     turbo: str = ""
+    # architecture overrides, comma-separated ints ("1,2,2,2"); None takes
+    # the reference's ch_mult table and attn (2,)
+    ch_mult: Optional[str] = None
+    attn: Optional[str] = None
+    # the reference's two-phase quirk: its phase-2 (unconditional) model
+    # runs the whole trajectory
+    two_phase_reference_quirk: bool = False
+    # the reference's reverse-sampling quirk (D13): `a` is dropped and the
+    # model re-encodes the current noisy sample at every step
+    reverse_reference_quirk: bool = False
 
     def __post_init__(self):
         if self.model not in MODELS:

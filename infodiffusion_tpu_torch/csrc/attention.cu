@@ -1,5 +1,5 @@
 // K2: single-head attention out = softmax(q k^T * C^-1/2) v, per batch
-// element, for q/k/v/out [B, N, C] with C = 128.
+// element, for q/k/v/out [B, N, C] with C = 128, 256 or 512.
 //
 // Replaces infodiffusion_tpu/ops/pallas/attention.py (attention_pallas /
 // _kernel). The contract is ops/attention.py _attention_xla, the form the
@@ -9,52 +9,68 @@
 //
 // The TPU kernel holds a whole [N, N] row block in VMEM. Here one block
 // owns 16 query rows and walks k/v in tiles of 32 rows through shared
-// memory, so any N runs in 43 KB of static shared memory. Rounding w
-// needs the final row max and sum before any PV product, so the block
-// makes two passes over k: the first keeps a running max and sum, the
-// second recomputes the logits, forms w = exp(s - max) / sum exactly as
-// the contract does and accumulates w v. That doubles the q k^T work. At
-// the flagship's N = 256 and 64 the kernel is bound by issue rate, not by
-// bytes; the products are plain f32 FMAs (no tensor cores yet).
+// memory, so any N runs. Rounding w needs the final row max and sum before
+// any PV product, so the block makes two passes over k: the first keeps a
+// running max and sum, the second recomputes the logits, forms
+// w = exp(s - max) / sum exactly as the contract does and accumulates w v.
+// That doubles the q k^T work. At the models' N = 256 and 64 the kernel
+// is bound by issue rate, not by bytes; the products are plain f32 FMAs
+// (no tensor cores yet).
+//
+// C is a template parameter: the InfoDiff UNet attends at C = 128, the
+// vanilla UNet and the VAE (ch_mult (1, 2, 4, 8)) at C = 256 (N = 256) and
+// C = 512 (N = 64, the first middle block). The tiles are f32 in dynamic
+// shared memory (43 KB at C = 128, 164 KB at C = 512, above the 48 KB
+// static limit); in the PV product each of the 128 threads owns C / 128
+// channels.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kC = 128;       // channels
 constexpr int kQT = 16;       // query rows per block
 constexpr int kKT = 32;       // key rows per tile (one warp lane each)
 constexpr int kThreads = 128; // 4 warps
 constexpr int kRowsPerGroup = kQT / (kThreads / kKT);  // 4
 
-template <typename T>
-__device__ void load_tile(float (*dst)[kC + 1], const T* src, int row0, int N) {
-  for (int i = threadIdx.x; i < kKT * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    dst[r][c] = (row0 + r < N) ? to_f32(src[(size_t)(row0 + r) * kC + c]) : 0.f;
+template <int C>
+constexpr size_t smem_bytes() {
+  // qs [kQT][C], ks and vs [kKT][C + 1], ps [kQT][kKT], row_m, row_l
+  return sizeof(float) * (kQT * C + 2 * kKT * (C + 1) + kQT * kKT + 2 * kQT);
+}
+
+template <int C, typename T>
+__device__ void load_tile(float* dst, const T* src, int row0, int N) {
+  for (int i = threadIdx.x; i < kKT * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    dst[r * (C + 1) + c] =
+        (row0 + r < N) ? to_f32(src[(size_t)(row0 + r) * C + c]) : 0.f;
   }
 }
 
-template <typename T>
+template <int C, typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int N,
                      float scale) {
-  __shared__ float qs[kQT][kC];
-  __shared__ float ks[kKT][kC + 1];  // +1: lanes read different rows
-  __shared__ float vs[kKT][kC + 1];
-  __shared__ float ps[kQT][kKT];
-  __shared__ float row_m[kQT], row_l[kQT];
+  constexpr int kCPT = C / kThreads;  // output channels per thread
+  extern __shared__ float sm[];
+  float* qs = sm;                      // [kQT][C]
+  float* ks = qs + kQT * C;            // [kKT][C + 1]: lanes read other rows
+  float* vs = ks + kKT * (C + 1);      // [kKT][C + 1]
+  float* ps = vs + kKT * (C + 1);      // [kQT][kKT]
+  float* row_m = ps + kQT * kKT;       // [kQT]
+  float* row_l = row_m + kQT;          // [kQT]
 
   const int b = blockIdx.y, q0 = blockIdx.x * kQT, tid = threadIdx.x;
-  const size_t off = (size_t)b * N * kC;
+  const size_t off = (size_t)b * N * C;
   const T* qb = q + off;
   const T* kb = k + off;
   const T* vb = v + off;
-  for (int i = tid; i < kQT * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    qs[r][c] = (q0 + r < N) ? to_f32(qb[(size_t)(q0 + r) * kC + c]) : 0.f;
+  for (int i = tid; i < kQT * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    qs[r * C + c] = (q0 + r < N) ? to_f32(qb[(size_t)(q0 + r) * C + c]) : 0.f;
   }
   if (tid < kQT) {
     row_m[tid] = -INFINITY;
@@ -68,11 +84,11 @@ __global__ void __launch_bounds__(kThreads)
   auto logits = [&](int k0, float (&s)[kRowsPerGroup]) {
 #pragma unroll
     for (int r = 0; r < kRowsPerGroup; ++r) s[r] = 0.f;
-    for (int c = 0; c < kC; ++c) {
-      const float kv = ks[j][c];
+    for (int c = 0; c < C; ++c) {
+      const float kv = ks[j * (C + 1) + c];
 #pragma unroll
       for (int r = 0; r < kRowsPerGroup; ++r)
-        s[r] = fmaf(qs[rg * kRowsPerGroup + r][c], kv, s[r]);
+        s[r] = fmaf(qs[(rg * kRowsPerGroup + r) * C + c], kv, s[r]);
     }
     const bool valid = k0 + j < N;
 #pragma unroll
@@ -82,16 +98,17 @@ __global__ void __launch_bounds__(kThreads)
 
   // pass 1: running row max and sum of exp
   for (int k0 = 0; k0 < N; k0 += kKT) {
-    load_tile(ks, kb, k0, N);
+    load_tile<C>(ks, kb, k0, N);
     __syncthreads();
     float s[kRowsPerGroup];
     logits(k0, s);
 #pragma unroll
-    for (int r = 0; r < kRowsPerGroup; ++r) ps[rg * kRowsPerGroup + r][j] = s[r];
+    for (int r = 0; r < kRowsPerGroup; ++r)
+      ps[(rg * kRowsPerGroup + r) * kKT + j] = s[r];
     __syncthreads();
     // warp w updates rows w*4 .. w*4+3; lane = key column
     for (int r = warp * kRowsPerGroup; r < (warp + 1) * kRowsPerGroup; ++r) {
-      const float sv = ps[r][lane];
+      const float sv = ps[r * kKT + lane];
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, warp_max(sv));
       const float e = warp_sum(sv == -INFINITY ? 0.f : expf(sv - m_new));
@@ -105,12 +122,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // pass 2: w = exp(s - max) / sum in f32, rounded to T, then w v in f32
-  float o[kQT];
+  float o[kQT][kCPT];
 #pragma unroll
-  for (int r = 0; r < kQT; ++r) o[r] = 0.f;
+  for (int r = 0; r < kQT; ++r)
+#pragma unroll
+    for (int cc = 0; cc < kCPT; ++cc) o[r][cc] = 0.f;
   for (int k0 = 0; k0 < N; k0 += kKT) {
-    load_tile(ks, kb, k0, N);
-    load_tile(vs, vb, k0, N);
+    load_tile<C>(ks, kb, k0, N);
+    load_tile<C>(vs, vb, k0, N);
     __syncthreads();
     float s[kRowsPerGroup];
     logits(k0, s);
@@ -120,40 +139,69 @@ __global__ void __launch_bounds__(kThreads)
       const float w = s[r] == -INFINITY
                           ? 0.f
                           : expf(s[r] - row_m[row]) / row_l[row];
-      ps[row][j] = round_to<T>(w);
+      ps[row * kKT + j] = round_to<T>(w);
     }
     __syncthreads();
     for (int jj = 0; jj < kKT; ++jj) {
-      const float vv = vs[jj][tid];
 #pragma unroll
-      for (int r = 0; r < kQT; ++r) o[r] = fmaf(ps[r][jj], vv, o[r]);
+      for (int cc = 0; cc < kCPT; ++cc) {
+        const float vv = vs[jj * (C + 1) + cc * kThreads + tid];
+#pragma unroll
+        for (int r = 0; r < kQT; ++r)
+          o[r][cc] = fmaf(ps[r * kKT + jj], vv, o[r][cc]);
+      }
     }
     __syncthreads();
   }
   T* ob = out + off;
 #pragma unroll
   for (int r = 0; r < kQT; ++r)
-    if (q0 + r < N) ob[(size_t)(q0 + r) * kC + tid] = from_f32<T>(o[r]);
+    if (q0 + r < N)
+#pragma unroll
+      for (int cc = 0; cc < kCPT; ++cc)
+        ob[(size_t)(q0 + r) * C + cc * kThreads + tid] = from_f32<T>(o[r][cc]);
+}
+
+template <int C, typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int N, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<C>();
+  auto kernel = attention_kernel<C, T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((N + kQT - 1) / kQT, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), N,
+      1.0f / sqrtf((float)C));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_c(const void* q, const void* k, const void* v, void* out, int B,
+               int N, int C, cudaStream_t stream) {
+  switch (C) {
+    case 128:
+      return launch<128, T>(q, k, v, out, B, N, stream);
+    case 256:
+      return launch<256, T>(q, k, v, out, B, N, stream);
+    case 512:
+      return launch<512, T>(q, k, v, out, B, N, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, out: [B, N, 128] of `dtype`, contiguous.
+// q, k, v, out: [B, N, C] of `dtype`, contiguous; C in {128, 256, 512}.
 INFODIFF_EXPORT int infodiff_attention(const void* q, const void* k,
                                        const void* v, void* out, int B, int N,
                                        int C, int dtype, cudaStream_t stream) {
-  if (C != kC) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kQT - 1) / kQT, B);
-  const float scale = 1.0f / sqrtf((float)C);
+  if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   if (dtype == kBF16)
-    attention_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), N, scale);
-  else
-    attention_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), N, scale);
-  return (int)cudaGetLastError();
+    return dispatch_c<__nv_bfloat16>(q, k, v, out, B, N, C, stream);
+  return dispatch_c<float>(q, k, v, out, B, N, C, stream);
 }

@@ -34,72 +34,14 @@
 // scaled by Wsc[j] per column before the bias, as the TPU kernel does.
 //
 // Limits: d <= 1024 (one thread per 4 hidden columns, h = 4d); BT in
-// {1, 2, 4, 8}; W is f32, bf16 or int8 (with Wsc).
-#include "common.cuh"
+// {1, 2, 4, 8}; W is f32, bf16 or int8 (with Wsc). The row tiling, the
+// column ownership and the product loop are shared with K5
+// (latent_mlp.cu) through latent_common.cuh.
+#include "latent_common.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  w[0] = t.x;
-  w[1] = t.y;
-  w[2] = t.z;
-  w[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  w[0] = a.x;
-  w[1] = a.y;
-  w[2] = b.x;
-  w[3] = b.y;
-}
-
-__device__ __forceinline__ void load4(const int8_t* p, float (&w)[4]) {
-  const char4 t = *reinterpret_cast<const char4*>(p);
-  w[0] = (float)t.x;
-  w[1] = (float)t.y;
-  w[2] = (float)t.z;
-  w[3] = (float)t.w;
-}
-
-// The type the matmul inputs are rounded to: W's own, bf16 for int8 W.
-template <typename WT>
-struct InputType {
-  using type = WT;
-};
-template <>
-struct InputType<int8_t> {
-  using type = __nv_bfloat16;
-};
-
-// Sum v[r] over the block for each of the BT rows; every thread gets the
-// totals. red holds [BT][32] per-warp partials, stat [BT] the totals.
-template <int BT>
-__device__ void block_sum(float (&v)[BT], float* red, float* stat) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    const float s = warp_sum(v[r]);
-    if (lane == 0) red[r * 32 + warp] = s;
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const float s = warp_sum(lane < nw ? red[r * 32 + lane] : 0.f);
-      if (lane == 0) stat[r] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < BT; ++r) v[r] = stat[r];
-}
+using namespace latent_common;
 
 template <typename WT, int BT>
 __global__ void __launch_bounds__(1024)
@@ -147,18 +89,8 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
         for (int c = 0; c < 4; ++c) z[r][c] = 0.f;
       if (work) {
-        const WT* Wj = W + (size_t)j * win * h + col;
-#pragma unroll 8
-        for (int k = 0; k < K; ++k) {
-          float w[4];
-          load4(Wj + (size_t)k * h, w);
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            const float a = inp[r * win + in_off + k];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) z[r][c] = fmaf(a, w[c], z[r][c]);
-          }
-        }
+        rows_times_columns<WT, BT>(W + (size_t)j * win * h + col, inp, win,
+                                   in_off, K, h, z);
         if (wsc) {  // int8 stream: per-column dequant before the bias
 #pragma unroll
           for (int c = 0; c < 4; ++c) {

@@ -2,17 +2,29 @@
 
 The JAX package compiles a whole trajectory into one ``lax.scan``; here a
 trajectory is a Python loop of eager steps, except the latent one, which
-runs as one kernel launch (K4, ``ops/cuda/latent_traj.py``).
+runs as one kernel launch (K4, ``ops/cuda/latent_traj.py``) unless the
+per-forward route (K5) is asked for.
 
 - ``sample_loop``: DDPM ancestral / stochastic DDIM (eta 0.01) over the
   full T grid.
+- ``reverse_sample_loop``: deterministic DDIM encoding x0 -> xT over
+  idx = 1 .. T-2.
+- ``two_phase_sample_loop``: the unconditional model for the steps
+  n <= split_step (counted from xT), the conditional one after; with
+  ``reference_quirk`` the unconditional one throughout.
 - ``strided_ddim_loop``: DDIM-N on the evenly spaced subgrid, walked down
   to t_prev = -1.
-- ``DiffusionProcess``: the image sampler's ``sampling`` path (no mesh),
-  with the int8 turbo tier (``turbo='int8'``: W8A8 UNet conv bodies).
+- ``DiffusionProcess``: the image sampler over an InfoDiff (conditioned on
+  ``a``) or a vanilla ``Diff`` (``cfg.model == 'vanilla'``), ``sampling``
+  and ``reverse_sampling`` (with the reference's D13 quirk behind
+  ``cfg.reverse_reference_quirk``), and the int8 turbo tier for InfoDiff
+  (``turbo='int8'``: W8A8 UNet conv bodies).
+- ``TwoPhaseDiffusionProcess``: an InfoDiff and a vanilla Diff, sampling
+  in two phases and reverse sampling through the InfoDiff.
 - ``LatentDiffusionProcess``: sampling and reverse sampling of the latent
-  prior through the trajectory kernel; ``turbo='int8'`` streams int8
-  weights.
+  prior through the trajectory kernel K4 (``turbo='int8'`` streams int8
+  weights), or, with ``INFODIFF_ENABLE_FUSED_LATENT=1``, through
+  ``sample_loop`` / ``reverse_sample_loop`` with one K5 forward per step.
 
 ``eps_fn(x, t, a)`` takes an int64 ``t`` [B]; random draws come from an
 explicit ``torch.Generator`` on the device, or are injected with
@@ -27,13 +39,19 @@ import torch
 
 from infodiffusion_tpu_torch.diffusion.schedule import (
     Schedule,
+    ddim_reverse_step,
     ddim_step,
     ddpm_step,
     make_schedule,
     strided_ddim_step,
 )
 from infodiffusion_tpu_torch.ops import quant as q8
-from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
+from infodiffusion_tpu_torch.ops.cuda.latent_mlp import (
+    fused_latent_supported,
+    latent_eps_fn,
+    pack_latent_unet_params,
+    use_fused_latent,
+)
 from infodiffusion_tpu_torch.ops.cuda.latent_traj import (
     latent_trajectory,
     quantize_packed_weights,
@@ -63,6 +81,58 @@ def sample_loop(
         idx = idxs[i]
         eps = eps_fn(x, _full_t(x, idx), a)
         noise = (noises[i] if noises is not None else torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        if deterministic:
+            x = ddim_step(sched, x, idx, eps, noise)
+        else:
+            noise = torch.where(idx == 0, torch.zeros_like(noise), noise)
+            x = ddpm_step(sched, x, idx, eps, noise)
+    return x
+
+
+def reverse_sample_loop(
+    eps_fn: Callable,
+    sched: Schedule,
+    x0: torch.Tensor,
+    a: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Deterministic DDIM encoding x0 -> xT over idx = 1 .. T-2 (the
+    reference's idx 0 step is a no-op)."""
+    x = x0
+    idxs = torch.arange(1, sched.T - 1, device=x0.device)
+    for i in range(idxs.shape[0]):
+        idx = idxs[i]
+        x = ddim_reverse_step(sched, x, idx, eps_fn(x, _full_t(x, idx), a))
+    return x
+
+
+def two_phase_sample_loop(
+    eps_fn_cond: Callable,
+    eps_fn_uncond: Callable,
+    sched: Schedule,
+    xT: torch.Tensor,
+    generator: Optional[torch.Generator],
+    a: torch.Tensor,
+    split_step: int,
+    *,
+    deterministic: bool = False,
+    reference_quirk: bool = False,
+    noises: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-grid two-phase sampling: step n (0 at xT) runs
+    ``eps_fn_uncond(x, t)`` when n <= split_step, else
+    ``eps_fn_cond(x, t, a)``; ``reference_quirk`` runs the unconditional
+    model on every step. Updates and ``noises`` as in ``sample_loop``."""
+    x = xT
+    idxs = torch.arange(sched.T - 1, -1, -1, device=xT.device)
+    for n in range(sched.T):
+        idx = idxs[n]
+        t = _full_t(x, idx)
+        if reference_quirk or n <= split_step:
+            eps = eps_fn_uncond(x, t)
+        else:
+            eps = eps_fn_cond(x, t, a)
+        noise = (noises[n] if noises is not None else torch.randn(
             x.shape, generator=generator, device=x.device, dtype=x.dtype))
         if deterministic:
             x = ddim_step(sched, x, idx, eps, noise)
@@ -126,18 +196,59 @@ def _resolve_turbo(cfg, turbo: Optional[str]) -> str:
     return mode
 
 
+def _no_turbo(mode: str, what: str) -> None:
+    if mode:
+        raise NotImplementedError(
+            f"turbo={mode!r} is not ported for {what}: the port's int8 tier "
+            f"covers InfoDiff generation only (ROADMAP.md, Queue 1, the "
+            f"int8 tier for the vanilla Diff and two-phase sampling)")
+
+
+def _requirk_eps_fn(model, generator: torch.Generator) -> Callable:
+    """The reference's reverse-sampling quirk (D13): ``a`` is dropped, so
+    the InfoDiff re-encodes the current noisy sample at every step and
+    routes ``a`` or ``a_q`` (drawn from ``generator``) to its backbone."""
+
+    def eps_fn(x, t, _a):
+        a_det, a_q, _, _ = model.encode(x, sample=True, generator=generator)
+        return model(x, t, model._route_latent(a_det, a_q))
+
+    return eps_fn
+
+
+def _reverse_eps_fn(cfg, model, conditional: bool, a,
+                    generator: Optional[torch.Generator]) -> Callable:
+    """The eps function of DDIM encoding through ``model``: unconditional,
+    or conditioned on ``a`` (required), or under
+    ``cfg.reverse_reference_quirk`` the D13 re-encoding, which draws from
+    ``generator``, else from one seeded with ``cfg.r_seed`` (as the JAX
+    package derives its key)."""
+    if not conditional:
+        return lambda x, t, _a: model(x, t)
+    if cfg.reverse_reference_quirk:
+        if generator is None:
+            generator = torch.Generator(
+                device=_device_of(model)).manual_seed(cfg.r_seed)
+        return _requirk_eps_fn(model, generator)
+    if a is None:
+        raise ValueError("reverse sampling a conditional model needs a")
+    return model
+
+
 class DiffusionProcess:
     """The image sampler. ``model`` is a port ``InfoDiff``, conditioned on
-    ``a`` (the unconditional image Diff is not ported); ``sampling`` draws
-    xT ~ N(0, I), and a ~ N(0, I) when not given, from ``generator``. The
+    ``a``, or a vanilla ``Diff`` when ``cfg.model == 'vanilla'``
+    (unconditional); ``sampling`` draws xT ~ N(0, I), and for a
+    conditional model a ~ N(0, I) when not given, from ``generator``. The
     carry stays f32 whatever the model's dtype.
 
     ``turbo='int8'`` (or ``cfg.turbo``, or ``INFODIFF_TURBO``) calibrates
     the activation scales once, here (``ops.quant.calibrate``), and the
     UNet's conv bodies then run W8A8. The process keeps the quant state
     and installs it on the model's modules for the length of each
-    ``sampling`` call only, so the model is left without it (training and
-    other processes over the same model never see it)."""
+    ``sampling`` / ``reverse_sampling`` call only, so the model is left
+    without it (training and other processes over the same model never see
+    it). The tier is not ported for the vanilla Diff: it raises."""
 
     def __init__(self, cfg, model: torch.nn.Module,
                  turbo: Optional[str] = None):
@@ -146,15 +257,23 @@ class DiffusionProcess:
         c, h, w = cfg.shape
         self.data_shape = (h, w, c)
         self.device = _device_of(model)
+        self.is_conditional = cfg.model != "vanilla"
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
         self.turbo = _resolve_turbo(cfg, turbo)
         self.quant = {}
         if self.turbo:
+            if not self.is_conditional:
+                _no_turbo(self.turbo, "the vanilla Diff")
             q8.calibrate(model, self.data_shape, a_dim=cfg.a_dim,
                          T=cfg.diffusion_steps, mode=self.turbo)
             self.quant = q8.quant_state(model)
             q8.clear_quant_state(model)
+
+    def _eps_fn(self) -> Callable:
+        if self.is_conditional:
+            return self.model
+        return lambda x, t, a: self.model(x, t)
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
@@ -167,26 +286,94 @@ class DiffusionProcess:
         if xT is None:
             xT = torch.randn((sampling_number,) + self.data_shape,
                              generator=generator, device=self.device)
-        if a is None:
+        if a is None and self.is_conditional:
             a = torch.randn((xT.shape[0], self.cfg.a_dim),
                             generator=generator, device=self.device)
         q8.load_quant_state(self.model, self.quant)
         try:
             if num_steps is not None:
-                return strided_ddim_loop(self.model, self.sched, xT,
+                return strided_ddim_loop(self._eps_fn(), self.sched, xT,
                                          generator, a, num_steps=num_steps)
-            return sample_loop(self.model, self.sched, xT, generator, a,
+            return sample_loop(self._eps_fn(), self.sched, xT, generator, a,
                                deterministic=self.cfg.deterministic)
         finally:
             q8.clear_quant_state(self.model)
 
+    @torch.no_grad()
+    def reverse_sampling(self, x0: torch.Tensor, a=None,
+                         generator: Optional[torch.Generator] = None):
+        """Deterministic DDIM encoding x0 -> xT, conditioned on ``a`` (a
+        conditional model needs it unless ``cfg.reverse_reference_quirk``,
+        whose re-encoding draws from ``generator``, else from
+        ``cfg.r_seed``)."""
+        eps_fn = _reverse_eps_fn(self.cfg, self.model, self.is_conditional,
+                                 a, generator)
+        q8.load_quant_state(self.model, self.quant)
+        try:
+            return reverse_sample_loop(eps_fn, self.sched, x0, a)
+        finally:
+            q8.clear_quant_state(self.model)
+
+
+class TwoPhaseDiffusionProcess:
+    """Two-phase sampling over a conditional InfoDiff ``model1`` and an
+    unconditional vanilla Diff ``model2`` (both on one device):
+    ``sampling`` runs ``model2`` for the steps n <= ``cfg.split_step``,
+    ``model1`` after (``model2`` throughout with
+    ``cfg.two_phase_reference_quirk``); ``reverse_sampling`` encodes through
+    ``model1`` (D13 quirk as in ``DiffusionProcess``). The int8 tier is not
+    ported for this process: a turbo mode raises."""
+
+    def __init__(self, cfg, model1: torch.nn.Module, model2: torch.nn.Module,
+                 turbo: Optional[str] = None):
+        _no_turbo(_resolve_turbo(cfg, turbo), "two-phase sampling")
+        self.cfg = cfg
+        self.model1 = model1.eval()
+        self.model2 = model2.eval()
+        c, h, w = cfg.shape
+        self.data_shape = (h, w, c)
+        self.device = _device_of(model1)
+        self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
+                                   self.device)
+
+    @torch.no_grad()
+    def sampling(self, generator: Optional[torch.Generator] = None,
+                 sampling_number: int = 16, xT=None, a=None, noises=None):
+        """The full T grid; ``noises`` [T, *xT.shape] injects the draws."""
+        if xT is None:
+            xT = torch.randn((sampling_number,) + self.data_shape,
+                             generator=generator, device=self.device)
+        if a is None:
+            a = torch.randn((xT.shape[0], self.cfg.a_dim),
+                            generator=generator, device=self.device)
+        return two_phase_sample_loop(
+            self.model1, lambda x, t: self.model2(x, t), self.sched, xT,
+            generator, a, self.cfg.split_step,
+            deterministic=self.cfg.deterministic,
+            reference_quirk=self.cfg.two_phase_reference_quirk, noises=noises)
+
+    @torch.no_grad()
+    def reverse_sampling(self, x0: torch.Tensor, a=None,
+                         generator: Optional[torch.Generator] = None):
+        """DDIM encoding through ``model1``, as
+        ``DiffusionProcess.reverse_sampling`` does for a conditional
+        model."""
+        return reverse_sample_loop(
+            _reverse_eps_fn(self.cfg, self.model1, True, a, generator),
+            self.sched, x0, a)
+
 
 class LatentDiffusionProcess:
-    """The latent prior's sampler: the whole trajectory runs as one K4
-    launch on the card (its plain version on the CPU). ``model`` is a port
+    """The latent prior's sampler. ``model`` is a port
     ``Diff(is_latent=True)``; its weights are packed once, here, in the
-    model's dtype, and with ``turbo='int8'`` quantized to the int8 weight
-    stream (``quantize_packed_weights``)."""
+    model's dtype. By default the whole trajectory runs as one K4 launch
+    on the card (its plain version on the CPU), and ``turbo='int8'``
+    quantizes the packed weights to K4's int8 stream
+    (``quantize_packed_weights``). With ``use_fused_latent`` (opt-in
+    ``INFODIFF_ENABLE_FUSED_LATENT=1``) the per-forward route outranks K4,
+    as in the JAX package: ``sample_loop`` and ``reverse_sample_loop`` over
+    ``latent_eps_fn``, one K5 launch per step; the int8 stream is K4's
+    only, so a turbo mode there raises."""
 
     def __init__(self, cfg, model: torch.nn.Module,
                  turbo: Optional[str] = None):
@@ -196,17 +383,27 @@ class LatentDiffusionProcess:
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
         self.turbo = _resolve_turbo(cfg, turbo)
+        self.per_forward = (
+            use_fused_latent(next(model.parameters()))
+            and fused_latent_supported(model.backbone, cfg.a_dim))
         self.params = pack_latent_unet_params(model.backbone, cfg.a_dim,
                                               dtype=model.dtype)
         if self.turbo:
+            if self.per_forward:
+                _no_turbo(self.turbo, "the per-forward latent route (K5)")
             self.params = quantize_packed_weights(self.params)
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
                  sampling_number: int = 16, xT=None, noises=None):
+        """``noises`` [T, B, a_dim] injects the per-step draws."""
         if xT is None:
             xT = torch.randn((sampling_number, self.cfg.a_dim),
                              generator=generator, device=self.device)
+        if self.per_forward:
+            return sample_loop(latent_eps_fn(self.params), self.sched, xT,
+                               generator, deterministic=self.cfg.deterministic,
+                               noises=noises)
         return latent_trajectory(
             self.params, self.sched, xT, generator,
             deterministic=self.cfg.deterministic, noises=noises,
@@ -214,5 +411,8 @@ class LatentDiffusionProcess:
 
     @torch.no_grad()
     def reverse_sampling(self, x0: torch.Tensor) -> torch.Tensor:
+        if self.per_forward:
+            return reverse_sample_loop(latent_eps_fn(self.params), self.sched,
+                                       x0)
         return latent_trajectory(self.params, self.sched, x0,
                                  deterministic=True, reverse=True)

@@ -90,6 +90,14 @@ def ddim_step(sched: Schedule, x, idx, eps_pred, noise,
     return is_last * x0 + (1.0 - is_last) * x_next
 
 
+def ddim_reverse_step(sched: Schedule, x, idx, eps_pred):
+    """One deterministic encoding step x_idx -> x_{idx+1} (the caller starts
+    at idx 1: idx 0 is a no-op)."""
+    x0 = predict_x0_from_eps(sched, x, idx, eps_pred)
+    apb_next = _bcast(sched.alpha_prev_bars[idx + 1], x)
+    return torch.sqrt(apb_next) * x0 + torch.sqrt(1.0 - apb_next) * eps_pred
+
+
 def strided_ddim_step(sched: Schedule, x, t, t_prev, eps_pred, noise,
                       eta: float = 0.0):
     """Textbook DDIM from ``t`` to ``t_prev`` on plain ᾱ; ``t_prev == -1``

@@ -6,13 +6,16 @@ format, so cuDNN's convs run NHWC-native and the NHWC view the norm and
 attention kernels read is free. The AdaGN chain (GroupNorm, then one or
 two FiLMs) is ``ops.norm.adagn``, kernel K1 on the card.
 
-Ported: ``AuxResBlock`` (the backbone) and ``EncoderResBlock`` (the
-Encoder), not ``ResBlock``. Dropout follows Flax ``nn.Dropout`` and is off
-unless a block is called with ``deterministic=False`` and an explicit
-``torch.Generator``. An up block takes its input as the pieces
-``(h, skip)`` of the skip concat and concatenates them itself (a plain
-``torch.cat``): the model-dtype path runs on the concat, and the int8
-tier's first conv quantizes each piece with its own scale.
+The three ResBlocks: ``ResBlock`` (time FiLM; the vanilla UNet),
+``AuxResBlock`` (time and aux FiLMs; the InfoDiff backbone) and
+``EncoderResBlock`` (unconditioned; the Encoder and Decoder). Dropout
+follows Flax ``nn.Dropout`` and is off unless a block is called with
+``deterministic=False`` and an explicit ``torch.Generator``. An up block
+takes its input as the pieces ``(h, skip)`` of the skip concat and
+concatenates them itself (a plain ``torch.cat``): the model-dtype path
+runs on the concat, the int8 tier's first conv quantizes each piece with
+its own scale, and the fused shortcut (K6, ``ops/cuda/shortcut_fused.py``,
+opt-in with ``INFODIFF_ENABLE_FUSED_SHORTCUT=1``) reads the pieces.
 
 The int8 turbo tier (``ops/quant.py``): a quantized conv with quant state
 runs W8A8 (``int8_conv``); during calibration it observes its input. A
@@ -31,12 +34,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from infodiffusion_tpu_torch.nn.attention import AttnBlock
+from infodiffusion_tpu_torch.nn.initializers import (
+    kaiming_normal_relu_,
+    lecun_normal_,
+)
 from infodiffusion_tpu_torch.nn.layers import Dense, xavier_
 from infodiffusion_tpu_torch.ops import quant as q8
 from infodiffusion_tpu_torch.ops.cuda.qconv import (
     fused_qconv_supported,
     qconv_fused,
     use_fused_qconv,
+)
+from infodiffusion_tpu_torch.ops.cuda.shortcut_fused import (
+    fused_shortcut_add,
+    fused_shortcut_supported,
+    use_fused_shortcut,
 )
 from infodiffusion_tpu_torch.ops.norm import adagn, group_norm_affine
 
@@ -209,10 +221,20 @@ class PieceConv3(Conv3):
 
 class ShortcutDense(Dense):
     """The ResBlock 1x1 shortcut as a Dense over the channel axis;
-    ``forward(x, residual)`` returns ``residual + dense(x)`` (NCHW). It
-    stays in the model dtype in the int8 tier."""
+    ``forward(x, residual, pieces)`` returns ``residual + dense(x)``
+    (NCHW), ``x`` being the block input and ``pieces`` its skip-concat
+    pieces (None for one piece). It stays in the model dtype in the int8
+    tier. On the K6 route (``use_fused_shortcut``) it is one fused pass
+    over the pieces, rounded once."""
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor,
+                pieces=None) -> torch.Tensor:
+        plist = list(pieces) if pieces is not None else [x]
+        if (use_fused_shortcut(residual) and fused_shortcut_supported(
+                [p.shape[1] for p in plist], residual.shape[1])):
+            return _nchw(fused_shortcut_add(
+                _nhwc(residual), [_nhwc(p) for p in plist], self.weight,
+                self.bias))
         return residual + _nchw(super().forward(_nhwc(x)))
 
 
@@ -262,8 +284,9 @@ def _as_pieces(x):
 
 
 class _ResBlockBase(nn.Module):
-    """What the two ResBlocks share: norm1-SiLU-conv1 over the input or
-    the skip-concat pieces, and the SiLU-dropout-conv stages after it."""
+    """What the three ResBlocks share: norm1-SiLU-conv1 over the input or
+    the skip-concat pieces, the SiLU-dropout-conv stages after it and the
+    shortcut epilogue."""
 
     def _stage1(self, x, pieces, deterministic):
         h = self.norm1(x, deterministic=deterministic, pieces=pieces)
@@ -281,9 +304,45 @@ class _ResBlockBase(nn.Module):
             return conv(h)
         return conv(dropout(F.silu(h), DROPOUT, deterministic, generator))
 
-    def _epilogue(self, x, h):
-        h = self.shortcut(x, h) if self.shortcut is not None else h + x
+    def _epilogue(self, x, h, pieces):
+        h = (self.shortcut(x, h, pieces) if self.shortcut is not None
+             else h + x)
         return self.attn(h) if self.attn is not None else h
+
+
+class ResBlock(_ResBlockBase):
+    """Time-conditioned ResBlock: norm1-SiLU-conv1,
+    [norm2 + FiLM(t)]-SiLU-dropout-conv2, norm3-SiLU-dropout-conv3,
+    + shortcut, then optional attention. ``skip_concat`` builds an up
+    block, which takes ``(h, skip)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
+                 attn: bool = False, dtype: torch.dtype = torch.float32,
+                 skip_concat: bool = False):
+        super().__init__()
+        self.norm1 = _GNParams(in_ch, out_ch)
+        self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
+                                                            dtype)
+        self.temb_proj = Dense(emb_dim, 2 * out_ch, dtype)
+        self.norm2 = _GNParams(out_ch, out_ch)
+        self.conv2 = Conv3(out_ch, out_ch, dtype)
+        self.norm3 = _GNParams(out_ch, out_ch)
+        self.conv3 = Conv3(out_ch, out_ch, dtype)
+        self.shortcut = (
+            ShortcutDense(in_ch, out_ch, dtype) if in_ch != out_ch else None
+        )
+        self.attn = AttnBlock(out_ch, dtype) if attn else None
+
+    def forward(self, x, temb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        pieces, x = _as_pieces(x)
+        h = self._stage1(x, pieces, deterministic)
+        t_scale, t_shift = self.temb_proj(F.silu(temb)).chunk(2, dim=-1)
+        h = self._stage_n(self.norm2, self.conv2, h, ((t_scale, t_shift),),
+                          deterministic, generator)
+        h = self._stage_n(self.norm3, self.conv3, h, (), deterministic,
+                          generator)
+        return self._epilogue(x, h, pieces)
 
 
 class AuxResBlock(_ResBlockBase):
@@ -322,7 +381,7 @@ class AuxResBlock(_ResBlockBase):
                           deterministic, generator)
         h = self._stage_n(self.norm3, self.conv3, h, (), deterministic,
                           generator)
-        return self._epilogue(x, h)
+        return self._epilogue(x, h, pieces)
 
 
 class EncoderResBlock(_ResBlockBase):
@@ -349,7 +408,7 @@ class EncoderResBlock(_ResBlockBase):
         h = self._stage1(x, pieces, deterministic)
         h = self._stage_n(self.norm2, self.conv2, h, (), deterministic,
                           generator)
-        return self._epilogue(x, h)
+        return self._epilogue(x, h, pieces)
 
 
 class DownSample(nn.Module):
@@ -392,6 +451,12 @@ class MLPLNAct(nn.Module):
         self.linear = Dense(in_ch, out_ch, dtype)
         self.linear_emb = Dense(cond_ch, out_ch, dtype) if use_cond else None
         self.norm = nn.LayerNorm(out_ch, eps=1e-5) if norm else None
+        # the reference's init: Kaiming-normal (relu) under an activation,
+        # else lecun-normal
+        init_ = kaiming_normal_relu_ if activation else lecun_normal_
+        for layer in (self.linear, self.linear_emb):
+            if layer is not None:
+                init_(layer.weight.data)
 
     def forward(self, x: torch.Tensor,
                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -30,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
-from infodiffusion_tpu_torch.ops.cuda.attention import CHANNELS
+
+CHANNELS = 128  # the only C the flash kernels are compiled for
 
 
 def flash_attention_bwd_reference(q, k, v, do):

@@ -32,11 +32,13 @@ from infodiffusion_tpu_torch.diffusion.schedule import DEFAULT_ETA, Schedule
 from infodiffusion_tpu_torch.models.latent_unet import TIME_EMB_CHANNELS
 from infodiffusion_tpu_torch.nn.embeddings import timestep_embedding
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
+from infodiffusion_tpu_torch.ops.cuda.latent_mlp import (
+    EPS,
+    MAX_A_DIM,
+    _row_tile,
+)
 from infodiffusion_tpu_torch.ops.quant import _per_127
 
-EPS = 1e-5
-MAX_A_DIM = 1024
-_ROW_TILES = (1, 2, 4, 8)
 # W dtype codes of csrc/latent_traj.cu
 _W_CODES = {**_lib.DTYPE_CODES, torch.int8: 2}
 
@@ -133,15 +135,6 @@ def latent_trajectory_reference(xT, coef, W, c_all, noises, bias, gamma,
                 eps = z[:, :d]
         x = coef[i, 0] * x + coef[i, 1] * eps + coef[i, 2] * noises[i]
     return x
-
-
-def _row_tile(B: int, device) -> int:
-    """Rows per block: the fewest that keep the grid within one wave."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for bt in _ROW_TILES:
-        if -(-B // bt) <= sms:
-            return bt
-    return _ROW_TILES[-1]
 
 
 def latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,

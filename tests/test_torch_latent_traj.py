@@ -43,7 +43,7 @@ def models():
     x = np.zeros((B, D), np.float32)
     t = np.zeros((B,), np.int32)
     params = randomize(init_variables(jm, x, t)["params"], seed=5)
-    pm = port(Diff(T=T, shape=(1, D, D)), params)
+    pm = port(Diff(T=T, shape=(1, D, D), is_latent=True), params)
     return jm, params, pm
 
 

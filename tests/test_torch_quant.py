@@ -326,7 +326,7 @@ def latent():
     params = randomize(init_variables(
         jm, np.zeros((B, D), np.float32), np.zeros((B,), np.int32)
     )["params"], seed=15)
-    pm = port(Diff(T=TL, shape=(1, D, D)), params)
+    pm = port(Diff(T=TL, shape=(1, D, D), is_latent=True), params)
     return D, TL, B, params, pm
 
 

@@ -67,7 +67,7 @@ def test_latent_prior_then_ddim_matches_jax():
     cfg = Config(model="diff", a_dim=A_DIM, diffusion_steps=T,
                  deterministic=True, input_channels=3, input_size=SIZE)
     latent = LatentDiffusionProcess(
-        cfg, port(Diff(T=T, shape=(1, A_DIM, A_DIM)), p_lat))
+        cfg, port(Diff(T=T, shape=(1, A_DIM, A_DIM), is_latent=True), p_lat))
     a_got = latent.sampling(xT=tensor(x_lat), noises=tensor(noises))
     assert_close(a_got, a_want, TRAJECTORY_TOL, "latents")
     # a tree from init(x, t, a) holds only the backbone: load it there
