@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE paths on one NVIDIA GPU.
+VAE and 512px paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -75,6 +75,25 @@ on the card. Phases, each printing one line or a few, any failure raising:
    inputs and noises, diffusion_steps 20 and split_step 10 (full widths):
    two-phase sampling, InfoDiff reverse sampling, the latent per-forward
    route (sampling and reverse) and VAE decode.
+15. high-resolution attention kernels, each against its plain version in
+   f32 and bf16 with CUDA-event times, bound and SDPA's time (on the first
+   of its flash, memory-efficient and math backends that takes the shape):
+   K3c (online forward) at [8,16384,128] (the InfoDiff at 512px),
+   [2,16384,256] and [8,4096,512] (the vanilla UNet at 512px); K3a at
+   [8,4096,128] (the 512px middle block), [32,1024,256] and [16,1024,512];
+   K3b at [64,256,256], [64,64,512], [4,16384,128] and [4,4096,128]; K2'
+   (tiled, all f32) at [128,256,128] tb=8; then K1 (B=8 and 4), its
+   backward (B=4) and K4 (B=8) at the 512px paths' shapes, errors only.
+16. the 512px paths, bf16, random weights: bench.py's InfoDiff at
+   INFODIFF_BENCH_SIZE=512 (latents T=1000 then DDIM-100 at B=8; encode
+   B=8; make_train_step B=4, 1 + 2 steps), the vanilla Diff and the VAE
+   training at 64px (B=64, 1 + 3), the vanilla UNet's DDIM-2 at 256px and
+   512px (K3a and K3c at C=256/512), and both attention tools at reduced
+   reps: rates, peak memory, exact launch counts per kernel and C.
+17. card against CPU, f32: the 64px InfoDiff DDIM-10 at B=2 with the
+   online route forced (the port's plan limit set in-process), one 512px
+   InfoDiff forward at B=1 on the real route, the vanilla Diff's and the
+   VAE's loss_and_grads at 64px B=2 per gradient leaf.
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
@@ -95,6 +114,7 @@ import os
 import re
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -128,18 +148,28 @@ from infodiffusion_tpu_torch.ops.cuda.adagn import (
     adagn_cuda,
     adagn_reference,
 )
+from infodiffusion_tpu_torch.ops.cuda import flash_attention as K3
 from infodiffusion_tpu_torch.ops.cuda.attention import (
     attention_cuda,
     attention_reference,
+    attention_tiled_cuda,
+    attention_tiled_reference,
 )
 from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_cuda,
     flash_attention_bwd_reference,
     flash_attention_cuda,
+    flash_attention_online_cuda,
+    flash_attention_online_reference,
 )
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
 from infodiffusion_tpu_torch.ops.cuda.library import library
 from infodiffusion_tpu_torch.pipelines import InfoDiffusionPipeline
+from infodiffusion_tpu_torch.tools import (
+    flash_attn_bench,
+    microbench_attention,
+    time_ms,
+)
 from infodiffusion_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
@@ -204,25 +234,6 @@ KERNELS = {
     "adagn": dict(fn=adagn_cuda, route="cuda",
                   source="infodiffusion_tpu_torch/csrc/adagn.cu",
                   replaces="infodiffusion_tpu/ops/pallas/adagn.py:90"),
-    # K2 is one kernel compiled per C; each C is a line of its own, counted
-    # from the wrapper's per-C launch count
-    "attention": dict(fn=attention_cuda, route="cuda",
-                      count=lambda: attention_cuda.launches_by_c[128],
-                      library="F.scaled_dot_product_attention",
-                      source="infodiffusion_tpu_torch/csrc/attention.cu",
-                      replaces="infodiffusion_tpu/ops/pallas/attention.py:49"),
-    "attention_c256": dict(
-        fn=attention_cuda, route="cuda",
-        count=lambda: attention_cuda.launches_by_c[256],
-        library="F.scaled_dot_product_attention",
-        source="infodiffusion_tpu_torch/csrc/attention.cu",
-        replaces="infodiffusion_tpu/ops/pallas/attention.py:49 (C=256)"),
-    "attention_c512": dict(
-        fn=attention_cuda, route="cuda",
-        count=lambda: attention_cuda.launches_by_c[512],
-        library="F.scaled_dot_product_attention",
-        source="infodiffusion_tpu_torch/csrc/attention.cu",
-        replaces="infodiffusion_tpu/ops/pallas/attention.py:49 (C=512)"),
     "latent_traj": dict(fn=K4.latent_trajectory_cuda, route="cuda",
                         source="infodiffusion_tpu_torch/csrc/latent_traj.cu",
                         replaces="infodiffusion_tpu/ops/pallas/"
@@ -231,16 +242,39 @@ KERNELS = {
                       source="infodiffusion_tpu_torch/csrc/adagn_bwd.cu",
                       replaces="XLA autodiff of "
                                "infodiffusion_tpu/ops/norm.py:293 (adagn)"),
-    "flash_attention": dict(
-        fn=flash_attention_cuda, route="cuda",
-        library="F.scaled_dot_product_attention",
-        source="infodiffusion_tpu_torch/csrc/flash_attention.cu",
-        replaces="infodiffusion_tpu/ops/pallas/flash_attention.py:274"),
-    "flash_attention_bwd": dict(
-        fn=flash_attention_bwd_cuda, route="cuda",
-        library="backward of F.scaled_dot_product_attention",
-        source="infodiffusion_tpu_torch/csrc/flash_attention_bwd.cu",
-        replaces="infodiffusion_tpu/ops/pallas/flash_attention.py:315"),
+}
+# K2, K3a, K3b and K3c are each one kernel compiled per C: a line per C,
+# counted from the wrapper's per-C launch count
+_PER_C = {
+    "attention": (attention_cuda, "F.scaled_dot_product_attention",
+                  "attention.cu",
+                  "infodiffusion_tpu/ops/pallas/attention.py:49"),
+    "flash_attention": (flash_attention_cuda, "F.scaled_dot_product_attention",
+                        "flash_attention.cu",
+                        "infodiffusion_tpu/ops/pallas/flash_attention.py:274"),
+    "flash_attention_bwd": (
+        flash_attention_bwd_cuda, "backward of F.scaled_dot_product_attention",
+        "flash_attention_bwd.cu",
+        "infodiffusion_tpu/ops/pallas/flash_attention.py:315"),
+    "flash_attention_online": (
+        flash_attention_online_cuda, "F.scaled_dot_product_attention",
+        "flash_attention_online.cu",
+        "infodiffusion_tpu/ops/pallas/flash_attention.py:476 "
+        "(_online_kernel :424)"),
+}
+for _name, (_fn, _lib_call, _src, _rep) in _PER_C.items():
+    for _c in K3.CHANNELS:
+        KERNELS[_name if _c == 128 else f"{_name}_c{_c}"] = dict(
+            fn=_fn, route="cuda", library=_lib_call,
+            count=lambda fn=_fn, c=_c: fn.launches_by_c[c],
+            source=f"infodiffusion_tpu_torch/csrc/{_src}",
+            replaces=_rep if _c == 128 else f"{_rep} (C={_c})")
+KERNELS.update({
+    "attention_tiled": dict(
+        fn=attention_tiled_cuda, route="cuda",
+        library="F.scaled_dot_product_attention on the f32 upcast",
+        source="infodiffusion_tpu_torch/csrc/attention.cu",
+        replaces="tools/microbench_attention.py:52 (_tiled_kernel :30)"),
     "qconv": dict(fn=K7.qconv_cuda, route="cuda",
                   source="infodiffusion_tpu_torch/csrc/qconv.cu",
                   replaces="infodiffusion_tpu/ops/pallas/qconv.py:244 "
@@ -271,14 +305,15 @@ KERNELS = {
         fn=K5.latent_unet_forward_cuda, route="cuda",
         source="infodiffusion_tpu_torch/csrc/latent_mlp.cu",
         replaces="infodiffusion_tpu/ops/pallas/latent_mlp.py:201"),
-}
+})
 
 
 def reset_launches():
     for spec in KERNELS.values():
-        spec["fn"].launches = 0
-    attention_cuda.launches_by_c.update(
-        dict.fromkeys(attention_cuda.launches_by_c, 0))
+        fn = spec["fn"]
+        fn.launches = 0
+        if hasattr(fn, "launches_by_c"):
+            fn.launches_by_c.update(dict.fromkeys(fn.launches_by_c, 0))
 
 
 def read_launches():
@@ -308,9 +343,10 @@ class Bound:
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
-    """(max abs error, max abs error / max |want|), in f64 on the host."""
-    got = got.detach().double().cpu()
-    want = want.detach().double().cpu()
+    """(max abs error, max abs error / max |want|), in f64 on ``got``'s
+    device."""
+    got = got.detach().double()
+    want = want.detach().to(got.device, torch.float64)
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
@@ -321,16 +357,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return time_ms(fn, reps, torch.device("cuda")) / reps
 
 
 def paired_ms(kernel, plain, reps: int, plain_reps=None):
@@ -342,19 +369,34 @@ def paired_ms(kernel, plain, reps: int, plain_reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def sdpa_ms(q, k, v, reps):
-    """One PyTorch call computing K2's / K3a's function:
-    ``F.scaled_dot_product_attention`` (a yardstick; the port never calls
-    it)."""
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
+def sdpa_ms(q, k, v, reps, do=None):
+    """One PyTorch call computing K2's / K3a's function, the yardstick the
+    port never calls: ``F.scaled_dot_product_attention`` (its backward, K3b's
+    yardstick, with ``do``) on q, k, v [B, N, C] viewed as one head
+    [B, 1, N, C], on the first of its flash, memory-efficient and math
+    backends that takes the shape. Returns (ms, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-
-def sdpa_bwd_ms(q, k, v, do, reps):
-    """The backward of ``F.scaled_dot_product_attention``: K3b's yardstick."""
-    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q, k, v)
-    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
-                                               retain_graph=True), reps)
+    q, k, v = (t.unsqueeze(1) for t in (q, k, v))
+    if do is None:
+        call = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    else:
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        do = do.unsqueeze(1)
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([backend]), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # why a backend declines
+            try:
+                if do is not None:
+                    out = F.scaled_dot_product_attention(q, k, v)
+                    call = lambda: torch.autograd.grad(  # noqa: E731
+                        out, (q, k, v), do, retain_graph=True)
+                ms = cuda_ms(call, reps)
+            except RuntimeError:
+                continue
+        return ms, backend.name.lower()
+    raise RuntimeError("no SDPA backend takes the shape")
 
 
 def init_weights_(model: torch.nn.Module, seed: int,
@@ -435,8 +477,12 @@ def build() -> None:
     regs = [int(w) for line in lines if "Used" in line
             for w, nxt in zip(line.split(), line.split()[1:])
             if nxt.startswith("registers")]
-    spills = [line.strip() for line in lines
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    spills, kernel = [], "?"
+    for line in lines:
+        if "Function properties for" in line:
+            kernel = line.split()[-1]  # the mangled name
+        elif any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+            spills.append(f"{kernel}: {line.strip()}")
     print(f"[build] nvcc {lib.build_seconds:.1f} s (load "
           f"{time.perf_counter() - t0:.1f} s); {len(regs)} kernels, max "
           f"{max(regs) if regs else '?'} registers; spills: "
@@ -467,9 +513,11 @@ def adagn_sites(model, run):
     return sorted(sites)
 
 
-def check_adagn(sites, device, reps, results):
+def check_adagn(sites, device, reps, results, B=BATCH):
+    """K1 at every (HW, C, K) of ``sites`` at batch ``B``; ``reps=0``
+    checks the errors only and leaves the kernel line's times as they
+    are."""
     g = torch.Generator(device=device).manual_seed(1)
-    B = BATCH
     for tag, dtype in DTYPES.items():
         ms = plain_ms = 0.0
         bnd = Bound()
@@ -487,13 +535,18 @@ def check_adagn(sites, device, reps, results):
             got = adagn_cuda(*args)
             torch.cuda.synchronize()
             abs_e, rel_e = rel_err(got, adagn_reference(*args))
-            km, pm = paired_ms(lambda: adagn_cuda(*args),
-                               lambda: adagn_reference(*args), reps)
-            ms, plain_ms = ms + km, plain_ms + pm
-            print(f"[K1 adagn] {tag} B={B} HW={hw} C={c} K={k}: rel err "
-                  f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
-                  f"{pm:.4f} ms")
+            del got
+            line = (f"[K1 adagn] {tag} B={B} HW={hw} C={c} K={k}: rel err "
+                    f"{rel_e:.2e} (abs {abs_e:.2e})")
+            if reps:
+                km, pm = paired_ms(lambda: adagn_cuda(*args),
+                                   lambda: adagn_reference(*args), reps)
+                ms, plain_ms = ms + km, plain_ms + pm
+                line += f"; {km:.4f} ms vs plain {pm:.4f} ms"
+            print(line)
             results.record("adagn", tag, abs_e, rel_e, TOL[tag])
+        if not reps:
+            continue
         print(f"[K1 adagn] {tag}: all {len(sites)} sites, one call each: "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
               f"ms ({bnd.by})")
@@ -511,7 +564,7 @@ def check_attention(device, reps, results):
                     PEAK[tag])
             q, k, v = (torch.randn(BATCH, n, 128, generator=g,
                                    device=device).to(dtype) for _ in range(3))
-            lib_ms += sdpa_ms(q, k, v, reps)
+            lib_ms += sdpa_ms(q, k, v, reps)[0]
             got = attention_cuda(q, k, v)
             torch.cuda.synchronize()
             abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
@@ -528,17 +581,24 @@ def check_attention(device, reps, results):
         results.time("attention", tag, ms, plain_ms, bnd, lib_ms)
 
 
-def check_latent_traj(lat_models, device, reps, results):
+def check_latent_traj(lat_models, device, reps, results, B=BATCH):
+    """K4 at batch ``B``; ``reps=0`` checks the error only and leaves the
+    kernel line's times as they are."""
     g = torch.Generator(device=device).manual_seed(3)
     sched = make_schedule(1e-5, 1e-2, T, device)
     for tag, model in lat_models.items():
         packed = pack_latent_unet_params(model.backbone, A_DIM,
                                          dtype=DTYPES[tag])
-        xT = torch.randn(BATCH, A_DIM, generator=g, device=device)
+        xT = torch.randn(B, A_DIM, generator=g, device=device)
         args = K4.trajectory_inputs(packed, sched, xT, g, deterministic=True)
         got = K4.latent_trajectory_cuda(*args)
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, K4.latent_trajectory_reference(*args))
+        results.record("latent_traj", tag, abs_e, rel_e, TOL["traj_" + tag])
+        if not reps:
+            print(f"[K4 latent_traj] {tag} weights, B={B} d={A_DIM} S={T}: "
+                  f"rel err {rel_e:.2e} (abs {abs_e:.2e})")
+            continue
         km, pm = paired_ms(lambda: K4.latent_trajectory_cuda(*args),
                            lambda: K4.latent_trajectory_reference(*args), reps)
         bnd = Bound()
@@ -546,7 +606,6 @@ def check_latent_traj(lat_models, device, reps, results):
         print(f"[K4 latent_traj] {tag} weights, B={BATCH} d={A_DIM} "
               f"S={T}: rel err {rel_e:.2e} (abs {abs_e:.2e}); {km:.2f} ms "
               f"vs plain {pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by})")
-        results.record("latent_traj", tag, abs_e, rel_e, TOL["traj_" + tag])
         results.time("latent_traj", tag, km, pm, bnd)
 
 
@@ -572,21 +631,27 @@ def latent_traj_work(W):
 # ------------------------------------------------------- training phases
 
 
+def loss_sites(size, device):
+    """The (HW, C, K) of every GroupNorm site one training forward
+    (backbone and Encoder) of the ``size``-pixel InfoDiff hits: those of
+    its UNet forward and its encode as well."""
+    model = train_model(torch.float32, device, size)
+    x = torch.zeros(1, size, size, 3, device=device)
+    draws = zero_draws(1, size, device)
+    return adagn_sites(model, lambda: model.loss_fn(
+        x, deterministic=True, **draws))
+
+
 def train_sites(device):
-    """{size: (batch, sites)}: the (HW, C, K) of every GroupNorm site one
-    training forward (backbone and Encoder) hits, per training run."""
-    out = {}
-    for size, batch, _ in TRAIN_RUNS:
-        model = train_model(torch.float32, device, size)
-        x = torch.zeros(1, size, size, 3, device=device)
-        draws = zero_draws(1, size, device)
-        out[size] = (batch, adagn_sites(model, lambda: model.loss_fn(
-            x, deterministic=True, **draws)))
-        del model
-    return out
+    """{size: (batch, sites)} per training run."""
+    return {size: (batch, loss_sites(size, device))
+            for size, batch, _ in TRAIN_RUNS}
 
 
 def check_adagn_bwd(sites_by_size, device, reps, results):
+    """The K1 backward at every site, per {size: (batch, sites)};
+    ``reps=0`` checks the errors only and leaves the kernel line's times
+    as they are."""
     g = torch.Generator(device=device).manual_seed(4)
     names = ("dx", "dgamma", "dbeta")
     for tag, dtype in DTYPES.items():
@@ -621,13 +686,20 @@ def check_adagn_bwd(sites_by_size, device, reps, results):
                     results.record("adagn_bwd", f"{tag} {what}", abs_e, rel_e,
                                    TOL[tag])
                     worst = max(worst, rel_e)
-                km, pm = paired_ms(lambda: adagn_bwd_cuda(*args, stats),
-                                   lambda: adagn_bwd_reference(*args), reps)
-                ms, plain_ms, n = ms + km, plain_ms + pm, n + 1
-                print(f"[K1 bwd] {tag} {size}px B={B} HW={hw} C={c} K={k}: "
-                      f"worst rel err {worst:.2e} over dx, dgamma, dbeta, "
-                      f"dfilms; {km:.4f} ms vs plain {pm:.4f} ms")
-                del x, dy, stats, got, want
+                del got, want, outs
+                line = (f"[K1 bwd] {tag} {size}px B={B} HW={hw} C={c} K={k}: "
+                        f"worst rel err {worst:.2e} over dx, dgamma, dbeta, "
+                        f"dfilms")
+                if reps:
+                    km, pm = paired_ms(lambda: adagn_bwd_cuda(*args, stats),
+                                       lambda: adagn_bwd_reference(*args),
+                                       reps)
+                    ms, plain_ms, n = ms + km, plain_ms + pm, n + 1
+                    line += f"; {km:.4f} ms vs plain {pm:.4f} ms"
+                print(line)
+                del x, dy, stats, args
+        if not reps:
+            continue
         print(f"[K1 bwd] {tag}: all {n} training sites, one call each: "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
               f"ms ({bnd.by})")
@@ -649,7 +721,7 @@ def check_flash(device, reps, results):
         e = torch.finfo(dtype).bits // 8
         bnd = Bound()
         bnd.add(4 * B * N * N * 128, 4 * B * N * 128 * e, PEAK[tag])
-        lib_ms = sdpa_ms(q, k, v, reps)
+        lib_ms = sdpa_ms(q, k, v, reps)[0]
         results.time("flash_attention", tag, km, pm, bnd, lib_ms)
         gflop = 4 * B * N * N * 128 / 1e9
         print(f"[K3a flash fwd] {tag} B={B} N={N} C=128: rel err {rel_e:.2e} "
@@ -664,7 +736,7 @@ def check_flash(device, reps, results):
                            .to(dtype) for _ in range(4))
             # recompute s, then dv, dp, dq, dk: 10 B N^2 C
             bnd.add(10 * B * N * N * 128, 7 * B * N * 128 * e, PEAK[tag])
-            lib_ms += sdpa_bwd_ms(q, k, v, do, reps)
+            lib_ms += sdpa_ms(q, k, v, reps, do)[0]
             got = flash_attention_bwd_cuda(q, k, v, do)
             torch.cuda.synchronize()
             want = flash_attention_bwd_reference(q, k, v, do)
@@ -708,10 +780,17 @@ def leaf_errors(got: dict, want: dict):
     return errs
 
 
-def train_run(size, batch, steps, device, smi):
-    """Drive ``make_train_step`` at ``size`` px; returns the launch counts
-    of the timed steps."""
-    model = train_model(torch.bfloat16, device, size)
+def train_run(size, batch, steps, device, smi, model=None, label=None,
+              want=None, no_grad=NO_GRAD_PARAMS, profile=False):
+    """Drive ``make_train_step`` on ``model`` (default: the flagship
+    InfoDiff for ``size``-pixel images), 1 warm-up step and ``steps`` timed;
+    checks a finite loss, that every parameter but ``no_grad`` has a
+    non-zero gradient and moved, and the launch counts of the timed steps
+    (exactly ``want`` where given), which it returns; with ``profile``,
+    then the device's share of one more step."""
+    if model is None:
+        model = train_model(torch.bfloat16, device, size)
+    label = label or f"{size}px"
     tx = make_optimizer(LR, 50, 1000)  # bench.py's train mode
     state = create_train_state(model, seed=0, tx=tx)
     step = make_train_step(model, tx)
@@ -731,32 +810,38 @@ def train_run(size, batch, steps, device, smi):
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"{size}px: non-finite metrics {metrics}")
+        raise AssertionError(f"{label}: non-finite metrics {metrics}")
     moved = {n for n, p in state.params.items() if not torch.equal(p, before[n])}
-    if set(state.params) - moved != NO_GRAD_PARAMS:
-        raise AssertionError(f"{size}px: parameters that did not move: "
+    if set(state.params) - moved != no_grad:
+        raise AssertionError(f"{label}: parameters that did not move: "
                              f"{sorted(set(state.params) - moved)}")
     del before
     _, _, grads = loss_and_grads(model, x, 0, deterministic=False,
                                  rngs=step_rngs(0, state.step, device))
     zero = {n for (n, _), gr in zip(model.named_parameters(), grads)
             if not gr.any()}
-    if zero != NO_GRAD_PARAMS:
-        raise AssertionError(f"{size}px: zero gradients: {sorted(zero)}")
+    if zero != no_grad:
+        raise AssertionError(f"{label}: zero gradients: {sorted(zero)}")
     del grads
-    needed = ["adagn", "adagn_bwd", "attention", "flash_attention_bwd"]
-    if size >= 128:
-        needed.append("flash_attention")
-    idle = [name for name in needed if launches[name] == 0]
-    if idle:
-        raise AssertionError(f"{size}px: kernels not launched: {idle}")
-    print(f"[train bf16] {size}px B={batch}: {steps} steps {dt:.3f} s = "
+    if want is None:
+        needed = ["adagn", "adagn_bwd", "attention", "flash_attention_bwd"]
+        if size >= 128:
+            needed.append("flash_attention")
+        idle = [name for name in needed if launches[name] == 0]
+        if idle:
+            raise AssertionError(f"{label}: kernels not launched: {idle}")
+    else:
+        expect(f"train {label}", launches, want)
+    moved_n = {k: v for k, v in launches.items() if v}
+    print(f"[train bf16] {label} B={batch}: {steps} steps {dt:.3f} s = "
           f"{batch * steps / dt:.2f} imgs/s (host clock, synchronised; "
-          f"{smi}); loss {metrics['loss']:.5f}, grad_norm "
-          f"{metrics['grad_norm']:.5f}, mmd {metrics['mmd']:.5f}; peak "
-          f"memory {peak / 2**30:.2f} GiB; all {len(state.params)} "
-          f"parameters but {len(NO_GRAD_PARAMS)} (fc_mu, fc_var) have a "
-          f"non-zero gradient and moved; launches {launches}")
+          f"{smi}); " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
+          + f"; peak memory {peak / 2**30:.2f} GiB; all {len(state.params)} "
+          f"parameters but {len(no_grad)} {sorted(no_grad) or ''} have a "
+          f"non-zero gradient and moved; launches {moved_n}")
+    if profile:
+        profile_steps(lambda: step(state, x, 0), f"train {label} B={batch}, "
+                      f"one step", smi)
     return launches
 
 
@@ -1388,7 +1473,7 @@ def check_attention_wide(device, reps, results):
             results.record(name, tag, abs_e, rel_e, TOL[tag])
             km, pm = paired_ms(lambda: attention_cuda(q, k, v),
                                lambda: attention_reference(q, k, v), reps)
-            lm = sdpa_ms(q, k, v, reps)
+            lm = sdpa_ms(q, k, v, reps)[0]
             bnd = Bound()
             bnd.add(4 * B * n * n * c, 4 * B * n * c * e, PEAK[tag])
             print(f"[K2 attention] {tag} B={B} N={n} C={c}: rel err "
@@ -1397,6 +1482,105 @@ def check_attention_wide(device, reps, results):
                   f"F.scaled_dot_product_attention {lm:.4f} ms")
             results.time(name, tag, km, pm, bnd, lm)
 
+
+# phase 15: the high-resolution attention kernels at the shapes of the
+# 512px InfoDiff (K3c C=128 at N=16384, K3a at its middle block's N=4096,
+# K3b at both in training), the vanilla UNet at 512px (K3c C=256 at level
+# 2, C=512 in the middle block), at 128px / 256px (K3a C=256 / 512) and at
+# 64px (K3b C=256 / 512), and K2' at the microbenchmark's first shape
+ONLINE_SHAPES = ((8, 16384, 128), (2, 16384, 256), (8, 4096, 512))
+PRIMARY_SHAPES = ((8, 4096, 128), (32, 1024, 256), (16, 1024, 512))
+BWD_SHAPES = ((64, 256, 256), (64, 64, 512), (4, 16384, 128),
+              (4, 4096, 128))
+TILED_SHAPE, TILED_TB = (128, 256, 128), 8
+
+
+def kernel_name(base: str, c: int) -> str:
+    return base if c == 128 else f"{base}_c{c}"
+
+
+def check_flash_wide(device, reps, results):
+    g = torch.Generator(device=device).manual_seed(25)
+    fwd = [("K3c online", "flash_attention_online", flash_attention_online_cuda,
+            flash_attention_online_reference, s) for s in ONLINE_SHAPES] + [
+        ("K3a flash fwd", "flash_attention", flash_attention_cuda,
+         attention_reference, s) for s in PRIMARY_SHAPES]
+    for tag, dtype in DTYPES.items():
+        e = torch.finfo(dtype).bits // 8
+        for label, base, kernel, plain, (B, N, C) in fwd:
+            name = kernel_name(base, C)
+            q, k, v = (torch.randn(B, N, C, generator=g, device=device)
+                       .to(dtype) for _ in range(3))
+            got = kernel(q, k, v)
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, plain(q, k, v))
+            results.record(name, tag, abs_e, rel_e, TOL[tag])
+            del got
+            km, pm = paired_ms(lambda: kernel(q, k, v),
+                               lambda: plain(q, k, v), reps)
+            lm, backend = sdpa_ms(q, k, v, reps)
+            bnd = Bound()
+            bnd.add(4 * B * N * N * C, 4 * B * N * C * e, PEAK[tag])
+            print(f"[{label}] {tag} B={B} N={N} C={C}: rel err {rel_e:.2e} "
+                  f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms "
+                  f"({4 * B * N * N * C / km / 1e9:.1f} TFLOP/s counting "
+                  f"4BN^2C), bound {bnd.ms:.4f} ms ({bnd.by}), "
+                  f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")
+            if name != "flash_attention":  # K3a at C=128 keeps phase 6's
+                results.time(name, tag, km, pm, bnd, lm)
+            del q, k, v
+            torch.cuda.empty_cache()
+        for B, N, C in BWD_SHAPES:
+            name = kernel_name("flash_attention_bwd", C)
+            q, k, v, do = (torch.randn(B, N, C, generator=g, device=device)
+                           .to(dtype) for _ in range(4))
+            got = flash_attention_bwd_cuda(q, k, v, do)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, do)
+            errs = []
+            for what, a, b in zip(("dq", "dk", "dv"), got, want):
+                abs_e, rel_e = rel_err(a, b)
+                results.record(name, f"{tag} {what}", abs_e, rel_e, TOL[tag])
+                errs.append(f"{what} {rel_e:.2e}")
+            del got, want
+            km, pm = paired_ms(
+                lambda: flash_attention_bwd_cuda(q, k, v, do),
+                lambda: flash_attention_bwd_reference(q, k, v, do), reps,
+                1 if N > 4096 else None)
+            lm, backend = sdpa_ms(q, k, v, reps, do)
+            bnd = Bound()
+            bnd.add(10 * B * N * N * C, 7 * B * N * C * e, PEAK[tag])
+            print(f"[K3b flash bwd] {tag} B={B} N={N} C={C}: rel err "
+                  f"{', '.join(errs)}; {km:.4f} ms vs plain {pm:.4f} ms, "
+                  f"bound {bnd.ms:.4f} ms ({bnd.by}), backward of "
+                  f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")
+            if C != 128:  # K3b at C=128 keeps phase 6's shapes
+                results.time(name, tag, km, pm, bnd, lm)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+        B, N, C = TILED_SHAPE
+        q, k, v = (torch.randn(B, N, C, generator=g, device=device).to(dtype)
+                   for _ in range(3))
+        got = attention_tiled_cuda(q, k, v, TILED_TB)
+        torch.cuda.synchronize()
+        abs_e, rel_e = rel_err(got, attention_tiled_reference(q, k, v,
+                                                              TILED_TB))
+        results.record("attention_tiled", tag, abs_e, rel_e, TOL[tag])
+        km, pm = paired_ms(lambda: attention_tiled_cuda(q, k, v, TILED_TB),
+                           lambda: attention_tiled_reference(q, k, v,
+                                                             TILED_TB), reps)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        lm, backend = sdpa_ms(qf, kf, vf, reps)
+        bnd = Bound()
+        # the function is f32 throughout, whatever the inputs' dtype
+        bnd.add(4 * B * N * N * C, 4 * B * N * C * e, PEAK["f32"])
+        print(f"[K2' tiled] {tag} B={B} N={N} C={C} tb={TILED_TB}: rel err "
+              f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} "
+              f"ms, bound {bnd.ms:.4f} ms ({bnd.by}), "
+              f"F.scaled_dot_product_attention ({backend}) on the f32 upcast "
+              f"{lm:.4f} ms")
+        results.time("attention_tiled", tag, km, pm, bnd, lm)
+        del q, k, v, qf, kf, vf
 
 def timed(run):
     """(result, host seconds, launches) of ``run()``, counted from zero,
@@ -1618,24 +1802,220 @@ def slice_card_vs_cpu(device):
           f"abs: {'; '.join(errs)} (bar {TOL['slice']:.0e})")
 
 
-QUEUED = (
-    # (kernel, shape, operations, bytes, rate): the TPU kernels still to
-    # port, at the shape the main path would give them, bf16
-    ("K3c online flash forward", "B=8 N=16384 C=128 (512px)",
-     4 * 8 * 16384 ** 2 * 128, 4 * 8 * 16384 * 128 * 2, "bf16"),
-    ("K2' tiled attention", "B=128 N=256 C=128",
-     4 * 128 * 256 ** 2 * 128, 4 * 128 * 256 * 128 * 2, "bf16"),
-)
+# phase 16: bench.py's model at INFODIFF_BENCH_SIZE=512 (AuxiliaryUNet ch 64,
+# ch_mult (1,2,2,2), attention at level 2 over N = 16384 tokens (K3c) and in
+# the middle block over N = 4096 (K3a), a_dim 256, T 1000, Encoder ch 64,
+# mmd 0.1); the vanilla Diff and the VAE training at 64px; the vanilla UNet
+# at 256px (K3a at C = 256 / 512) and 512px (K3c at C = 256 / 512); the
+# two attention tools
+HIRES = 512
+HIRES_BATCH = {"generate": 8, "encode": 8, "train": 4}
+HIRES_DDIM_STEPS = 100
+HIRES_TRAIN_STEPS = 2
+WIDE_TRAIN_BATCH, WIDE_TRAIN_STEPS = 64, 3
+# (image size, batch, route) of the vanilla UNet's high-resolution DDIM
+VANILLA_HIRES = ((256, 4, "flash_attention"), (512, 2, "flash_attention_online"))
+VANILLA_HIRES_STEPS = 2
+# attention calls of one UNet or Encoder forward: level 2 (2 down + 3 up
+# blocks in the UNet, the Encoder's too) and the first middle block
+ATTN_LVL, ATTN_MID = 5, 1
 
 
-def queued_bounds():
-    """The card's bound for each kernel still to port (arithmetic on the
-    published peaks; no kernel runs)."""
-    for name, shape, ops, nbytes, rate in QUEUED:
-        b = Bound()
-        b.add(ops, nbytes, PEAK[rate])
-        print(f"[queued] {name}, {shape}: bound {b.ms:.4f} ms ({b.by})")
+def hires_paths(device, smi):
+    """Phase 16: each path once at full width, bf16; returns each path's
+    launch counts."""
+    bf16 = torch.bfloat16
+    by_path = {}
+    cfg = dataclasses.replace(slice_cfg("diff"), input_size=HIRES)
+    img = train_model(bf16, device, HIRES).eval()
+    lat = init_weights_(Diff(T=T, shape=cfg.latent_shape, is_latent=True,
+                             dtype=bf16), 1).to(device).eval()
+    pipe = InfoDiffusionPipeline(cfg, img)
+    gen = torch.Generator(device=device)
+    B = HIRES_BATCH["generate"]
+    pipe.generate(B, steps=1, generator=gen.manual_seed(40))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    a, dt_lat, n_lat = timed(lambda: LatentDiffusionProcess(cfg, lat).sampling(
+        gen.manual_seed(41), sampling_number=B))
+    steps = HIRES_DDIM_STEPS
+    out, dt, n = timed(lambda: pipe.generate(B, a=a, steps=steps,
+                                             generator=gen.manual_seed(42)))
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (B, HIRES, HIRES, 3):
+        raise AssertionError(f"generate_512px: images {tuple(out.shape)}")
+    report("generate_512px", out, B, dt, n, smi)
+    print(f"[generate_512px] latents T={T} B={B}: {dt_lat:.3f} s = "
+          f"{B / dt_lat:.2f} latents/s; DDIM-{steps} peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    profile_steps(lambda: pipe.generate(B, a=a, steps=2,
+                                        generator=gen.manual_seed(45)),
+                  f"generate_512px B={B}, 2 DDIM steps", smi)
+    expect("latents_512px", n_lat, {"latent_traj": 1})
+    expect("generate_512px", n, {"flash_attention_online": ATTN_LVL * steps,
+                                 "flash_attention": ATTN_MID * steps,
+                                 "attention": 0})
+    by_path["generate_512px"] = {k: n[k] + n_lat[k] for k in n}
 
+    B = HIRES_BATCH["encode"]
+    x = torch.from_numpy(np.random.RandomState(43).uniform(
+        -1, 1, (B, HIRES, HIRES, 3)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        pipe.encode(x)  # warm-up
+        out, dt, n = timed(lambda: pipe.encode(x))
+    report("encode_512px", out, B, dt, n, smi, "imgs")
+    expect("encode_512px", n, {"flash_attention_online": ATTN_LVL,
+                               "flash_attention": ATTN_MID, "attention": 0})
+    by_path["encode_512px"] = n
+    del img, lat, pipe, x, out, a
+    torch.cuda.empty_cache()
+
+    s = HIRES_TRAIN_STEPS
+    by_path["train_512px"] = train_run(
+        HIRES, HIRES_BATCH["train"], s, device, smi, want={
+            "flash_attention_online": 2 * ATTN_LVL * s,
+            "flash_attention": 2 * ATTN_MID * s,
+            "flash_attention_bwd": 2 * (ATTN_LVL + ATTN_MID) * s,
+            "attention": 0}, profile=True)
+    torch.cuda.empty_cache()
+
+    s = WIDE_TRAIN_STEPS
+    for name, forwards in (("vanilla", 1), ("vae", 2)):  # the VAE: Enc + Dec
+        _, model = slice_model(name, bf16, device)
+        by_path[f"train_{name}"] = train_run(
+            SIZE, WIDE_TRAIN_BATCH, s, device, smi, model=model.train(),
+            label=f"{name} 64px", no_grad=set(), want={
+                "attention_c256": forwards * ATTN_LVL * s,
+                "attention_c512": forwards * ATTN_MID * s,
+                "flash_attention_bwd_c256": forwards * ATTN_LVL * s,
+                "flash_attention_bwd_c512": forwards * ATTN_MID * s,
+                "attention": 0, "flash_attention_bwd": 0})
+        del model
+        torch.cuda.empty_cache()
+
+    s = VANILLA_HIRES_STEPS
+    for size, B, route in VANILLA_HIRES:
+        vcfg = dataclasses.replace(slice_cfg("vanilla"), input_size=size)
+        van = init_weights_(build_model(vcfg, dtype=bf16, device=device),
+                            2).eval()
+        proc = DiffusionProcess(vcfg, van)
+        xT = torch.randn((B, size, size, 3), generator=gen.manual_seed(44),
+                         device=device)
+        proc.sampling(xT=xT, num_steps=1)  # warm-up
+        out, dt, n = timed(lambda: proc.sampling(xT=xT, num_steps=s))
+        path = f"vanilla_ddim_{size}px"
+        report(path, out, B, dt, n, smi)
+        expect(path, n, {f"{route}_c256": ATTN_LVL * s,
+                         f"{route}_c512": ATTN_MID * s})
+        by_path[path] = n
+        del van, proc, xT, out
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def tool_paths(device):
+    """Phase 16, the attention tools at reduced reps, on the card."""
+    by_path = {}
+    _, _, n = timed(lambda: microbench_attention.main(device, reps=5))
+    expect("microbench_tool K2'", n, {"attention_tiled": 2 * 3 * 6})
+    by_path["microbench_tool"] = n
+    for grad, configs in (("0", "1024x64,16384x2"), ("1", "16384x1")):
+        with env_set({"INFODIFF_FAB_REPS": "3", "INFODIFF_FAB_GRAD": grad,
+                      "INFODIFF_FAB_CONFIGS": configs}):
+            _, _, n = timed(lambda: flash_attn_bench.main(device))
+        if not n["flash_attention_online"]:
+            raise AssertionError("flash_attn_bench: K3c not launched")
+        by_path[f"flash_attn_bench{'_grad' if grad == '1' else ''}"] = n
+    return by_path
+
+
+class plan_limit:
+    """Set the port's primary-plan limit (``_FWD_PLAN_LIMIT``) for a block,
+    as ``tests/test_flash_attention.py`` sets the JAX one."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.saved = K3._FWD_PLAN_LIMIT
+        K3._FWD_PLAN_LIMIT = self.value
+
+    def __exit__(self, *exc):
+        K3._FWD_PLAN_LIMIT = self.saved
+
+
+def hires_card_vs_cpu(device):
+    """Phase 17: f32, the same numpy weights and inputs on both devices:
+    the 64px InfoDiff DDIM-10 at B=2 with the online route forced (the plan
+    limit at 0, the gate at 64 tokens: K3c at the N = 256 sites, K2 at the
+    N = 64 one, where the online tiles do not divide N), one 512px InfoDiff
+    forward at B=1 on the real route, and the vanilla Diff's and the VAE's
+    ``loss_and_grads`` at 64px B=2 per gradient leaf."""
+    n = 2
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(70)
+    xT = torch.from_numpy(rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
+    a = torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32))
+    x512 = torch.from_numpy(rng.randn(1, HIRES, HIRES, 3).astype(np.float32))
+    t512 = torch.tensor([417])
+    a512 = torch.from_numpy(rng.randn(1, A_DIM).astype(np.float32))
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (n, SIZE, SIZE, 3))
+                          .astype(np.float32))
+    draws = {"vanilla": dict(
+        t=torch.tensor([5, 901]),
+        eps=torch.from_numpy(rng.randn(n, SIZE, SIZE, 3).astype(np.float32))),
+        "vae": dict(
+        reparam_eps=torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32)),
+        prior_samples=torch.from_numpy(
+            rng.randn(n, A_DIM).astype(np.float32)))}
+    outs, grads, errs = {}, {}, []
+    for dev in (cpu, device):
+        with env_set({"INFODIFF_FLASH_ATTN_MIN_TOKENS": "64"}), plan_limit(0):
+            _, img, _ = flagship(torch.float32, dev, seed=71)
+            reset_launches()
+            with torch.no_grad():
+                outs[("online_ddim", dev.type)] = strided_ddim_loop(
+                    img, make_schedule(1e-5, 1e-2, T, dev), xT.to(dev), None,
+                    a.to(dev), num_steps=10).cpu()
+            if dev.type == "cuda":
+                expect("online_ddim card", read_launches(), {
+                    "flash_attention_online": 10 * ATTN_LVL,
+                    "attention": 10 * ATTN_MID, "flash_attention": 0})
+        del img
+        img = train_model(torch.float32, dev, HIRES, seed=72, bias_std=0.1)
+        reset_launches()
+        with torch.no_grad():
+            outs[("forward_512px", dev.type)] = img.eval()(
+                x512.to(dev), t512.to(dev), a512.to(dev)).cpu()
+        if dev.type == "cuda":
+            expect("forward_512px card", read_launches(), {
+                "flash_attention_online": ATTN_LVL,
+                "flash_attention": ATTN_MID, "attention": 0})
+        del img
+        for name in ("vanilla", "vae"):
+            _, model = slice_model(name, torch.float32, dev, seed=73)
+            model = init_weights_(model, 73, bias_std=0.1)
+            loss, _, g = loss_and_grads(
+                model, x0.to(dev), 0, deterministic=True,
+                **{k: v.to(dev) for k, v in draws[name].items()})
+            outs[(f"{name}_loss", dev.type)] = loss.cpu()
+            grads[(name, dev.type)] = {
+                k: v.cpu() for (k, _), v in zip(model.named_parameters(), g)}
+            del model, g
+    for what in ("online_ddim", "forward_512px", "vanilla_loss", "vae_loss"):
+        _, e = rel_err(outs[(what, "cuda")], outs[(what, "cpu")])
+        errs.append((what, e))
+    for name in ("vanilla", "vae"):
+        leaf = leaf_errors(grads[(name, "cuda")], grads[(name, "cpu")])
+        worst = max(leaf, key=leaf.get)
+        errs.append((f"{name} gradient leaves (worst {worst})", leaf[worst]))
+    print("[hires card vs CPU] f32, max abs error over max abs: " + "; ".join(
+        f"{what} {e:.2e}" for what, e in errs) + f" (bar {TOL['slice']:.0e};"
+        f" the online route forced for the 64px DDIM-10 at B={n}: K3c at "
+        f"N=256, K2 at N=64)")
+    for what, e in errs:
+        if not e <= TOL["slice"]:
+            raise AssertionError(f"hires card vs CPU {what}: {e:.3e} over "
+                                 f"{TOL['slice']:.0e}")
 
 class Results:
     """Per-kernel errors and times; a check over its bar raises at once."""
@@ -1730,11 +2110,24 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-14) to run after 1 "
+                        help="comma-separated phases (3-17) to run after 1 "
                              "and 2; default all, which also prints the "
                              "kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
-    run = lambda phase: not only or phase in only  # noqa: E731
+    clock = {"phase": None, "t0": time.perf_counter()}
+
+    def run(phase):
+        """Whether to run ``phase``; prints the wall time of the last one
+        (``phase=None``: only that)."""
+        if phase is not None and only and phase not in only:
+            return False
+        now = time.perf_counter()
+        if clock["phase"] is not None and clock["phase"] != phase:
+            print(f"[phase {clock['phase']}] {now - clock['t0']:.1f} s")
+        if clock["phase"] != phase:
+            clock.update(phase=phase, t0=now)
+        return True
+
     smi = check_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1801,8 +2194,26 @@ def main() -> None:
         torch.cuda.empty_cache()
     if run(14):
         slice_card_vs_cpu(device)
+    if run(15):
+        check_flash_wide(device, 3, results)
+        # K1, its backward and K4 at the 512px paths' shapes, errors only
+        sites = loss_sites(HIRES, device)
+        for B in sorted(set(HIRES_BATCH.values())):
+            check_adagn(sites, device, 0, results, B=B)
+        check_adagn_bwd({HIRES: (HIRES_BATCH["train"], sites)}, device, 0,
+                        results)
+        check_latent_traj({tag: flagship(dtype, device)[2]
+                           for tag, dtype in DTYPES.items()}, device, 0,
+                          results, B=HIRES_BATCH["generate"])
+        torch.cuda.empty_cache()
+    if run(16):
+        by_path.update(hires_paths(device, smi))
+        by_path.update(tool_paths(device))
+        torch.cuda.empty_cache()
+    if run(17):
+        hires_card_vs_cpu(device)
+    run(None)  # the last phase's time
     if not only:
-        queued_bounds()
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

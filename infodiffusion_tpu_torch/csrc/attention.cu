@@ -23,6 +23,14 @@
 // shared memory (43 KB at C = 128, 164 KB at C = 512, above the 48 KB
 // static limit); in the PV product each of the 128 threads owns C / 128
 // channels.
+//
+// K2' is the same kernel instantiated without the rounding of w: it
+// replaces tools/microbench_attention.py (attention_pallas_tiled /
+// _tiled_kernel), attention all in f32 (q, k, v upcast, f32 logits and
+// softmax, w unrounded in PV, the output in v's dtype) with TB batch
+// elements per grid step. Here a block owns the same 16 query rows of tb
+// consecutive batch elements and walks them in turn. w stays f32, so PV
+// stays on f32 FMAs (TF32 tensor cores would round it).
 #include <math.h>
 
 #include "common.cuh"
@@ -49,11 +57,12 @@ __device__ void load_tile(float* dst, const T* src, int row0, int N) {
   }
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int N,
-                     float scale) {
+// One batch element's 16 query rows from q0; kRoundW rounds w to T (K2)
+// or keeps it f32 (K2').
+template <int C, typename T, bool kRoundW>
+__device__ void attend(const T* __restrict__ qb, const T* __restrict__ kb,
+                       const T* __restrict__ vb, T* __restrict__ ob, int q0,
+                       int N, float scale) {
   constexpr int kCPT = C / kThreads;  // output channels per thread
   extern __shared__ float sm[];
   float* qs = sm;                      // [kQT][C]
@@ -63,11 +72,7 @@ __global__ void __launch_bounds__(kThreads)
   float* row_m = ps + kQT * kKT;       // [kQT]
   float* row_l = row_m + kQT;          // [kQT]
 
-  const int b = blockIdx.y, q0 = blockIdx.x * kQT, tid = threadIdx.x;
-  const size_t off = (size_t)b * N * C;
-  const T* qb = q + off;
-  const T* kb = k + off;
-  const T* vb = v + off;
+  const int tid = threadIdx.x;
   for (int i = tid; i < kQT * C; i += kThreads) {
     const int r = i / C, c = i % C;
     qs[r * C + c] = (q0 + r < N) ? to_f32(qb[(size_t)(q0 + r) * C + c]) : 0.f;
@@ -139,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
       const float w = s[r] == -INFINITY
                           ? 0.f
                           : expf(s[r] - row_m[row]) / row_l[row];
-      ps[row * kKT + j] = round_to<T>(w);
+      ps[row * kKT + j] = kRoundW ? round_to<T>(w) : w;
     }
     __syncthreads();
     for (int jj = 0; jj < kKT; ++jj) {
@@ -153,7 +158,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
   }
-  T* ob = out + off;
 #pragma unroll
   for (int r = 0; r < kQT; ++r)
     if (q0 + r < N)
@@ -162,46 +166,77 @@ __global__ void __launch_bounds__(kThreads)
         ob[(size_t)(q0 + r) * C + cc * kThreads + tid] = from_f32<T>(o[r][cc]);
 }
 
-template <int C, typename T>
+// grid (query tiles, B / tb): batch elements blockIdx.y * tb .. + tb - 1
+template <int C, typename T, bool kRoundW>
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, int N,
+                     float scale, int tb) {
+  const int q0 = blockIdx.x * kQT;
+  // K2 owns one element a block: a loop the compiler sees to run once
+  const int n = kRoundW ? 1 : tb;
+  for (int i = 0; i < n; ++i) {
+    // the previous element's last pass ended at a barrier
+    const size_t off = (size_t)(blockIdx.y * tb + i) * N * C;
+    attend<C, T, kRoundW>(q + off, k + off, v + off, out + off, q0, N, scale);
+  }
+}
+
+template <int C, typename T, bool kRoundW>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int N, cudaStream_t stream) {
+           int N, int tb, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<C>();
-  auto kernel = attention_kernel<C, T>;
+  auto kernel = attention_kernel<C, T, kRoundW>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((N + kQT - 1) / kQT, B);
+  const dim3 grid((N + kQT - 1) / kQT, B / tb);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), N,
-      1.0f / sqrtf((float)C));
+      1.0f / sqrtf((float)C), tb);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kRoundW>
 int dispatch_c(const void* q, const void* k, const void* v, void* out, int B,
-               int N, int C, cudaStream_t stream) {
+               int N, int C, int tb, cudaStream_t stream) {
   switch (C) {
     case 128:
-      return launch<128, T>(q, k, v, out, B, N, stream);
+      return launch<128, T, kRoundW>(q, k, v, out, B, N, tb, stream);
     case 256:
-      return launch<256, T>(q, k, v, out, B, N, stream);
+      return launch<256, T, kRoundW>(q, k, v, out, B, N, tb, stream);
     case 512:
-      return launch<512, T>(q, k, v, out, B, N, stream);
+      return launch<512, T, kRoundW>(q, k, v, out, B, N, tb, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool kRoundW>
+int dispatch(const void* q, const void* k, const void* v, void* out, int B,
+             int N, int C, int dtype, int tb, cudaStream_t stream) {
+  if (B < 1 || N < 1 || tb < 1 || B % tb) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return dispatch_c<__nv_bfloat16, kRoundW>(q, k, v, out, B, N, C, tb,
+                                              stream);
+  return dispatch_c<float, kRoundW>(q, k, v, out, B, N, C, tb, stream);
+}
+
 }  // namespace
 
-// q, k, v, out: [B, N, C] of `dtype`, contiguous; C in {128, 256, 512}.
+// K2. q, k, v, out: [B, N, C] of `dtype`, contiguous; C in {128, 256, 512}.
 INFODIFF_EXPORT int infodiff_attention(const void* q, const void* k,
                                        const void* v, void* out, int B, int N,
                                        int C, int dtype, cudaStream_t stream) {
-  if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16)
-    return dispatch_c<__nv_bfloat16>(q, k, v, out, B, N, C, stream);
-  return dispatch_c<float>(q, k, v, out, B, N, C, stream);
+  return dispatch<true>(q, k, v, out, B, N, C, dtype, 1, stream);
+}
+
+// K2': the same shapes; tb divides B.
+INFODIFF_EXPORT int infodiff_attention_tiled(const void* q, const void* k,
+                                             const void* v, void* out, int B,
+                                             int N, int C, int dtype, int tb,
+                                             cudaStream_t stream) {
+  return dispatch<false>(q, k, v, out, B, N, C, dtype, tb, stream);
 }

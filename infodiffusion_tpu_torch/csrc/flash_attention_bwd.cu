@@ -1,8 +1,10 @@
-// K3b: flash-attention backward for q/k/v/do [B, N, C], C = 128, any N.
+// K3b: flash-attention backward for q/k/v/do [B, N, C], C = 128, 256 or
+// 512, any N.
 //
 // Replaces infodiffusion_tpu/ops/pallas/flash_attention.py (_bwd_kernel /
-// _bwd_call), the JAX package's one backward kernel. Contract, line by
-// line that of _bwd_kernel: recompute w in f32 from the full row;
+// _bwd_call), the JAX package's one backward kernel (also the online
+// forward's: its VJP delegates to the primary's). Contract, line by line
+// that of _bwd_kernel: recompute w in f32 from the full row;
 // dp = do v^T (f32 accumulation); delta = rowsum(w * dp);
 // ds = w (dp - delta) scale; ds_c = ds in q's dtype and w_c = w in v's
 // dtype; dq = ds_c k, dk = ds_c^T q, dv = w_c^T do, accumulated in f32;
@@ -20,13 +22,22 @@
 //        recomputes w and ds from the saved row statistics and
 //        accumulates dk and dv for its 64 keys in f32 registers.
 //
-// That is 10 matrix products of 2 B N^2 C FLOPs each per call (q k^T three
-// times and do v^T twice in (i), both once more and the two accumulations
-// in (ii)); the products bound it. bf16 (the training path) runs them on
-// the tensor cores (mma.sync m16n8k16, f32 accumulation; flash_mma.cuh),
-// with w and ds fed to the next product from the accumulators; in (ii) a
-// warp computes s^T and dp^T for its 16 keys directly, so w^T and ds^T are
-// A fragments too. f32 runs plain FMAs on f32 tiles (flash_common.cuh).
+// At C = 128 that is 10 matrix products of 2 B N^2 C FLOPs each per call
+// (q k^T three times and do v^T twice in (i), both once more and the two
+// accumulations in (ii)); the products bound it. bf16 (the training path)
+// runs them on the tensor cores (mma.sync m16n8k16, f32 accumulation;
+// flash_mma.cuh), with w and ds fed to the next product from the
+// accumulators; in (ii) a warp computes s^T and dp^T for its 16 keys
+// directly, so w^T and ds^T are A fragments too. f32 runs plain FMAs on
+// f32 tiles (flash_common.cuh).
+//
+// C = 256 and 512 (the vanilla UNet and the VAE) go through the same
+// 128-channel tiles: the logits sum over channel chunks, and each
+// 128-channel slice of dq, dk and dv is a pass of its own that recomputes
+// the logits (in bf16 (ii) dv and dk take separate passes, so a thread
+// holds one 16 x 128 accumulator, as at C = 128). Shared memory and
+// registers stay those of C = 128; the logit products are recomputed
+// C / 128 times over.
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -39,6 +50,7 @@ using namespace flash;
 constexpr size_t kRowsSmem = (4 * kTileFloats + kPFloats) * sizeof(float);
 constexpr size_t kColsSmem = (4 * kTileFloats + 2 * kPFloats) * sizeof(float);
 
+template <int C>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_rows_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -53,23 +65,22 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + kTileFloats;
   float* ps = vs + kTileFloats;  // ds
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t off = (size_t)b * N * kC;
-  load_tile(qs, q + off, q0, N);
-  load_tile(dos, dout + off, q0, N);
+  const size_t off = (size_t)b * N * C;
+  const float *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
+  if (C == kC) {
+    load_tile(qs, qb, q0, N);
+    load_tile(dos, dob, q0, N);
+  }
 
   float m[4], l[4];
-  row_stats(qs, ks, k + off, N, scale, m, l);
+  row_stats<C>(qs, ks, qb, q0, kb, N, scale, m, l);
 
   // delta = rowsum(w * dp), w in f32
   float delta[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + off, k0, N);
-    load_tile(vs, v + off, k0, N);
-    __syncthreads();
     float s[4][4], dp[4][4];
-    mm_nt(qs, ks, s);
-    mm_nt(dos, vs, dp);
+    s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
+    s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -81,39 +92,37 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int a = 0; a < 4; ++a) delta[a] = row_sum(delta[a]);
 
-  // dq = sum over key tiles of ds_c k
-  float o[8][4];
+  // dq = sum over key tiles of ds_c k, one 128-channel slice at a time
+  const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll 1
+  for (int oc = 0; oc < C; oc += kC) {
+    float o[8][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + off, k0, N);
-    load_tile(vs, v + off, k0, N);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_nt(qs, ks, s);
-    mm_nt(dos, vs, dp);
+      for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
+    for (int k0 = 0; k0 < N; k0 += kTile) {
+      float s[4][4], dp[4][4];
+      s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
+      // at C == kC ks still holds k's rows; else its slice oc comes here
+      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C == kC ? nullptr : ks, kb,
+                oc);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        float ds = 0.f;
-        if (k0 + s_col(bb) < N) {
-          const float w = expf(s[a][bb] * scale - m[a]) / l[a];
-          ds = w * (dp[a][bb] - delta[a]) * scale;
+        for (int bb = 0; bb < 4; ++bb) {
+          float ds = 0.f;
+          if (k0 + s_col(bb) < N) {
+            const float w = expf(s[a][bb] * scale - m[a]) / l[a];
+            ds = w * (dp[a][bb] - delta[a]) * scale;
+          }
+          ps[s_row(a) * kLDP + s_col(bb)] = ds;
         }
-        ps[s_row(a) * kLDP + s_col(bb)] = ds;
-      }
-    __syncthreads();
-    mm_nn_acc(ps, ks, o);
+      __syncthreads();
+      mm_nn_acc(ps, ks, o);
+    }
+    store_rows<C>(dq + off, o, q0, N, oc, one);
   }
-  float* dqb = dq + off;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-    if (q0 + o_row(r) < N)
-      store4(dqb + (size_t)(q0 + o_row(r)) * kC + o_col(), o[r]);
   if (threadIdx.x % 16 == 0) {
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
@@ -128,6 +137,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// (ii) in f32: the block's 64 keys are the rows of s^T = k q^T and
+// dp^T = v do^T, so w^T and ds^T land in shared memory as [key][query]
+// and dv += w^T do, dk += ds^T q are row-major products.
+template <int C>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_cols_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -141,67 +154,69 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + kTileFloats;
   float* qs = vs + kTileFloats;
   float* dos = qs + kTileFloats;
-  float* pw = dos + kTileFloats;  // w
-  float* pds = pw + kPFloats;     // ds
+  float* pw = dos + kTileFloats;  // w^T
+  float* pds = pw + kPFloats;     // ds^T
   const int b = blockIdx.y, j0 = blockIdx.x * kTile;
-  const size_t off = (size_t)b * N * kC;
-  load_tile(ks, k + off, j0, N);
-  load_tile(vs, v + off, j0, N);
+  const size_t off = (size_t)b * N * C;
+  const float *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
+  if (C == kC) {
+    load_tile(ks, kb, j0, N);
+    load_tile(vs, vb, j0, N);
+  }
 
-  float dk_acc[8][4], dv_acc[8][4];
+  const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll 1
+  for (int oc = 0; oc < C; oc += kC) {
+    float dk_acc[8][4], dv_acc[8][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-  for (int i0 = 0; i0 < N; i0 += kTile) {
-    __syncthreads();
-    load_tile(qs, q + off, i0, N);
-    load_tile(dos, dout + off, i0, N);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_nt(qs, ks, s);
-    mm_nt(dos, vs, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = i0 + s_row(a);
-      float m = 0.f, l = 1.f, delta = 0.f;
-      if (row < N) {
-        const float* st = rowstats + ((size_t)b * N + row) * 3;
-        m = st[0];
-        l = st[1];
-        delta = st[2];
-      }
+      for (int c = 0; c < 4; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+    for (int i0 = 0; i0 < N; i0 += kTile) {
+      float s[4][4], dp[4][4];
+      s_tile<C>(s, ks, qs, kb, j0, qb, i0, N);
+      s_tile<C>(dp, vs, dos, vb, j0, dob, i0, N);
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb) {
-        float w = 0.f, ds = 0.f;
-        if (row < N && j0 + s_col(bb) < N) {
-          w = expf(s[a][bb] * scale - m) / l;
-          ds = w * (dp[a][bb] - delta) * scale;
+        const int row = i0 + s_col(bb);  // the query
+        float m = 0.f, l = 1.f, delta = 0.f;
+        if (row < N) {
+          const float* st = rowstats + ((size_t)b * N + row) * 3;
+          m = st[0];
+          l = st[1];
+          delta = st[2];
         }
-        pw[s_row(a) * kLDP + s_col(bb)] = w;
-        pds[s_row(a) * kLDP + s_col(bb)] = ds;
-      }
-    }
-    __syncthreads();
-    mm_tn_acc(pw, dos, dv_acc);
-    mm_tn_acc(pds, qs, dk_acc);
-  }
-  float* dkb = dk + off;
-  float* dvb = dv + off;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
-    if (j0 + o_row(r) < N) {
-      const size_t i = (size_t)(j0 + o_row(r)) * kC + o_col();
-      store4(dkb + i, dk_acc[r]);
-      store4(dvb + i, dv_acc[r]);
+        for (int a = 0; a < 4; ++a) {
+          float w = 0.f, ds = 0.f;
+          if (row < N && j0 + s_row(a) < N) {
+            w = expf(s[a][bb] * scale - m) / l;
+            ds = w * (dp[a][bb] - delta) * scale;
+          }
+          pw[s_row(a) * kLDP + s_col(bb)] = w;
+          pds[s_row(a) * kLDP + s_col(bb)] = ds;
+        }
+      }
+      __syncthreads();
+      if (C != kC) {  // slice oc of the queries' q and do
+        load_chunk<C>(qs, qb, i0, N, oc);
+        load_chunk<C>(dos, dob, i0, N, oc);
+        __syncthreads();
+      }
+      mm_nn_acc(pw, dos, dv_acc);
+      mm_nn_acc(pds, qs, dk_acc);
     }
+    store_rows<C>(dk + off, dk_acc, j0, N, oc, one);
+    store_rows<C>(dv + off, dv_acc, j0, N, oc, one);
+  }
 }
 
+template <int C>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* rowstats, int B, int N,
            cudaStream_t stream) {
-  auto rows = flash_bwd_rows_kernel;
-  auto cols = flash_bwd_cols_kernel;
+  auto rows = flash_bwd_rows_kernel<C>;
+  auto cols = flash_bwd_cols_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(
       rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
   if (err == cudaSuccess)
@@ -209,7 +224,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         cols, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kColsSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kTile - 1) / kTile, B);
-  const float scale = 1.0f / sqrtf((float)kC);
+  const float scale = 1.0f / sqrtf((float)C);
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);
   const float* v_ = static_cast<const float*>(v);
@@ -234,16 +249,10 @@ using namespace flash_mma;
 constexpr size_t kRowsSmem = 4 * kTileElems * sizeof(bf16);
 constexpr size_t kColsSmem = 4 * kTileElems * sizeof(bf16) +
                              3 * kTile * sizeof(float);
+constexpr size_t kColsChunkedSmem = 5 * kTileElems * sizeof(bf16) +
+                                    3 * kTile * sizeof(float);
 
-// s = q k^T and dp = do v^T for the warp's 16 rows against one k/v tile
-__device__ __forceinline__ void s_and_dp(const bf16* qs, const bf16* dos,
-                                         const bf16* ks, const bf16* vs,
-                                         int m0, float (&s)[8][4],
-                                         float (&dp)[8][4]) {
-  mm_abt(s, qs, m0, ks);
-  mm_abt(dp, dos, m0, vs);
-}
-
+template <int C>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_rows_mma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -260,22 +269,22 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
   const int m0 = (threadIdx.x / 32) * 16;
   const int g = lane() / 4, t = lane() % 4;
-  const size_t off = (size_t)b * N * kC;
-  load_tile(qs, q + off, q0, N);
-  load_tile(dos, dout + off, q0, N);
+  const size_t off = (size_t)b * N * C;
+  const bf16 *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
+  if (C == kC) {
+    load_tile(qs, qb, q0, N);
+    load_tile(dos, dob, q0, N);
+  }
 
   float m[2], l[2];
-  row_stats(qs, ks, k + off, N, scale, m, l);
+  row_stats<C>(qs, ks, qb, q0, kb, N, scale, m, l);
 
   // delta = rowsum(w * dp), w in f32
   float delta[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + off, k0, N);
-    load_tile(vs, v + off, k0, N);
-    __syncthreads();
     float s[8][4], dp[8][4];
-    s_and_dp(qs, dos, ks, vs, m0, s, dp);
+    s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
+    s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -287,50 +296,47 @@ __global__ void __launch_bounds__(kThreads)
   delta[0] = quad_sum(delta[0]);
   delta[1] = quad_sum(delta[1]);
 
-  // dq = sum over key tiles of ds_c k
-  float o[16][4];
+  // dq = sum over key tiles of ds_c k, one 128-channel slice at a time
+  const float one[2] = {1.f, 1.f};
+#pragma unroll 1
+  for (int oc = 0; oc < C; oc += kC) {
+    float o[16][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + off, k0, N);
-    load_tile(vs, v + off, k0, N);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    s_and_dp(qs, dos, ks, vs, m0, s, dp);
-    unsigned p[4][4];
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int k0 = 0; k0 < N; k0 += kTile) {
+      float s[8][4], dp[8][4];
+      s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
+      // at C == kC ks still holds k's rows; else its slice oc comes here
+      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C == kC ? nullptr : ks, kb,
+                oc);
+      unsigned p[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n = 2 * kk + half;
-        float ds[4];
+        for (int half = 0; half < 2; ++half) {
+          const int n = 2 * kk + half;
+          float ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ds[e] = 0.f;
-          if (k0 + acc_col(n, e) < N) {
-            const float w = expf(s[n][e] * scale - m[e / 2]) / l[e / 2];
-            ds[e] = w * (dp[n][e] - delta[e / 2]) * scale;
+          for (int e = 0; e < 4; ++e) {
+            ds[e] = 0.f;
+            if (k0 + acc_col(n, e) < N) {
+              const float w = expf(s[n][e] * scale - m[e / 2]) / l[e / 2];
+              ds[e] = w * (dp[n][e] - delta[e / 2]) * scale;
+            }
           }
+          p[kk][2 * half] = pack(ds[0], ds[1]);
+          p[kk][2 * half + 1] = pack(ds[2], ds[3]);
         }
-        p[kk][2 * half] = pack(ds[0], ds[1]);
-        p[kk][2 * half + 1] = pack(ds[2], ds[3]);
-      }
-    mm_px(o, p, ks);
+      mm_px(o, p, ks);
+    }
+    store_rows<C>(dq + off, o, q0, N, oc, one);
   }
-  bf16* dqb = dq + off;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + m0 + g + 8 * h;
-    if (row >= N) continue;
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)row * kC + n * 8 +
-                                         2 * t) =
-          __floats2bfloat162_rn(o[n][2 * h], o[n][2 * h + 1]);
-    if (t == 0) {
+    if (row < N && t == 0) {
       float* st = rowstats + ((size_t)b * N + row) * 3;
       st[0] = m[h];
       st[1] = l[h];
@@ -339,6 +345,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// (ii) at C = 128: dk and dv together, 16 queries at a time
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_cols_mma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -447,28 +454,112 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// (ii) at C = 256 and 512: a warp owns 16 keys and computes s^T = k q^T
+// (and, for dk, dp^T = v do^T) against 64 queries over the channel chunks;
+// w^T (for dv) or ds^T (for dk) go to the product from the accumulators,
+// against the 128-channel slice oc of do or q. dv and dk take separate
+// passes, so a thread holds one 16 x 128 accumulator.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_cols_chunked_mma_kernel(const bf16* __restrict__ q,
+                                      const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v,
+                                      const bf16* __restrict__ dout,
+                                      const float* __restrict__ rowstats,
+                                      bf16* __restrict__ dk,
+                                      bf16* __restrict__ dv, int N,
+                                      float scale) {
+  extern __shared__ uint4 smem_u4[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_u4);
+  bf16* vs = ks + kTileElems;
+  bf16* qs = vs + kTileElems;
+  bf16* dos = qs + kTileElems;
+  bf16* xs = dos + kTileElems;  // the slice oc of do (dv) or q (dk)
+  float* st = reinterpret_cast<float*>(xs + kTileElems);  // [64][3]
+  const int b = blockIdx.y, j0 = blockIdx.x * kTile;
+  const int m0 = (threadIdx.x / 32) * 16;  // the warp's 16 keys
+  const int g = lane() / 4;
+  const size_t off = (size_t)b * N * C;
+  const bf16 *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
+  const float one[2] = {1.f, 1.f};
+
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {  // 0: dv, 1: dk
+#pragma unroll 1
+    for (int oc = 0; oc < C; oc += kC) {
+      float acc[16][4];
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int i0 = 0; i0 < N; i0 += kTile) {
+        // the queries' (m, l, delta), once the previous tile's are read
+        __syncthreads();
+        for (int i = threadIdx.x; i < kTile; i += kThreads) {
+          const bool valid = i0 + i < N;
+          const float* src = rowstats + ((size_t)b * N + i0 + i) * 3;
+          st[3 * i] = valid ? src[0] : 0.f;
+          st[3 * i + 1] = valid ? src[1] : 1.f;
+          st[3 * i + 2] = valid ? src[2] : 0.f;
+        }
+        float s[8][4], dp[8][4];
+        s_tile<C>(s, ks, qs, kb, j0, qb, i0, N, pass == 0 ? xs : nullptr,
+                  dob, oc);
+        if (pass == 1) s_tile<C>(dp, vs, dos, vb, j0, dob, i0, N, xs, qb, oc);
+        unsigned p[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int n = 2 * kk + half;
+            float x[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = acc_col(n, e);               // query in the tile
+              const int key = j0 + m0 + g + 8 * (e / 2);  // key of this row
+              x[e] = 0.f;
+              if (i0 + qi < N && key < N) {
+                const float w =
+                    expf(s[n][e] * scale - st[3 * qi]) / st[3 * qi + 1];
+                x[e] = pass == 0 ? w
+                                 : w * (dp[n][e] - st[3 * qi + 2]) * scale;
+              }
+            }
+            p[kk][2 * half] = pack(x[0], x[1]);
+            p[kk][2 * half + 1] = pack(x[2], x[3]);
+          }
+        mm_px(acc, p, xs);
+      }
+      store_rows<C>((pass == 0 ? dv : dk) + off, acc, j0, N, oc, one);
+    }
+  }
+}
+
+template <int C>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* rowstats, int B, int N,
            cudaStream_t stream) {
+  auto rows = flash_bwd_rows_mma_kernel<C>;
+  auto cols = C == kC ? flash_bwd_cols_mma_kernel
+                      : flash_bwd_cols_chunked_mma_kernel<C>;
+  const size_t cols_smem = C == kC ? kColsSmem : kColsChunkedSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_rows_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kRowsSmem);
+      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_cols_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kColsSmem);
+    err = cudaFuncSetAttribute(
+        cols, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cols_smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kTile - 1) / kTile, B);
-  const float scale = 1.0f / sqrtf((float)kC);
+  const float scale = 1.0f / sqrtf((float)C);
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* k_ = static_cast<const bf16*>(k);
   const bf16* v_ = static_cast<const bf16*>(v);
   const bf16* do_ = static_cast<const bf16*>(dout);
-  flash_bwd_rows_mma_kernel<<<grid, kThreads, kRowsSmem, stream>>>(
+  rows<<<grid, kThreads, kRowsSmem, stream>>>(
       q_, k_, v_, do_, static_cast<bf16*>(dq), rowstats, N, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_cols_mma_kernel<<<grid, kThreads, kColsSmem, stream>>>(
+  cols<<<grid, kThreads, cols_smem, stream>>>(
       q_, k_, v_, do_, rowstats, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), N, scale);
   return (int)cudaGetLastError();
@@ -476,17 +567,36 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace mma_bwd
 
+template <int C>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             void* dq, void* dk, void* dv, float* rowstats, int B, int N,
+             int dtype, cudaStream_t stream) {
+  if (dtype == kBF16)
+    return mma_bwd::launch<C>(q, k, v, dout, dq, dk, dv, rowstats, B, N,
+                              stream);
+  return fma_bwd::launch<C>(q, k, v, dout, dq, dk, dv, rowstats, B, N,
+                            stream);
+}
+
 }  // namespace
 
-// q, k, v, dout, dq, dk, dv: [B, N, 128] of `dtype`, contiguous, 16-byte
-// aligned; rowstats: [B, N, 3] f32 scratch.
+// q, k, v, dout, dq, dk, dv: [B, N, C] of `dtype`, contiguous, 16-byte
+// aligned, C in {128, 256, 512}; rowstats: [B, N, 3] f32 scratch.
 INFODIFF_EXPORT int infodiff_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* rowstats, int B, int N, int C, int dtype,
     cudaStream_t stream) {
-  if (C != flash::kC || N <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16)
-    return mma_bwd::launch(q, k, v, dout, dq, dk, dv, rowstats, B, N, stream);
-  return fma_bwd::launch(q, k, v, dout, dq, dk, dv, rowstats, B, N,
-                                stream);
+  if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 128:
+      return dispatch<128>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
+                           stream);
+    case 256:
+      return dispatch<256>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
+                           stream);
+    case 512:
+      return dispatch<512>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
+                           stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-// f32 tiles and micro-products of the flash-attention forward (K3a,
-// flash_attention.cu) and backward (K3b, flash_attention_bwd.cu) for f32
-// inputs (bf16 runs on the tensor cores, flash_mma.cuh).
+// f32 tiles and micro-products of the flash-attention forwards (K3a,
+// flash_attention.cu; K3c, flash_attention_online.cu) and backward (K3b,
+// flash_attention_bwd.cu) for f32 inputs (bf16 runs on the tensor cores,
+// flash_mma.cuh).
 //
-// C = 128 channels (every attention site of the model). A block of 256
-// threads works on 64-row f32 tiles in shared memory; every product is an
-// f32 FMA. Rows are padded (132 and 68 floats) so that the 16-byte loads
-// of a quarter warp fall in distinct banks.
+// A block of 256 threads works on 64-row f32 tiles of 128 channels in
+// shared memory; every product is an f32 FMA. Rows are padded (132 and 68
+// floats) so that the 16-byte loads of a quarter warp fall in distinct
+// banks. At C = 256 and 512 the channels go through the tiles in
+// 128-wide chunks, as in flash_mma.cuh.
 #pragma once
 
 #include <math.h>
@@ -14,7 +16,7 @@
 
 namespace flash {
 
-constexpr int kC = 128;         // channels
+constexpr int kC = 128;         // channels of a tile: one chunk of C
 constexpr int kTile = 64;       // rows of a q tile and of a k/v tile
 constexpr int kThreads = 256;
 constexpr int kLD = kC + 4;     // row stride of a [64][128] tile
@@ -26,18 +28,25 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// rows [row0, row0 + 64) of src [N, 128] into dst [64][kLD]; rows at or
-// beyond N are zero
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int N) {
+// rows [row0, row0 + 64) and channels [c0, c0 + 128) of src [N, C] into
+// dst [64][kLD]; rows at or beyond N are zero
+template <int C>
+__device__ __forceinline__ void load_chunk(float* dst, const float* src,
+                                           int row0, int N, int c0) {
   for (int i = threadIdx.x; i < kTile * kC / 4; i += kThreads) {
     const int r = i / (kC / 4), c = (i % (kC / 4)) * 4;
     const float4 v = row0 + r < N
                          ? *reinterpret_cast<const float4*>(
-                               src + (size_t)(row0 + r) * kC + c)
+                               src + (size_t)(row0 + r) * C + c0 + c)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * kLD + c) = v;
   }
+}
+
+// rows [row0, row0 + 64) of src [N, 128] into dst [64][kLD]
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int N) {
+  load_chunk<kC>(dst, src, row0, N, 0);
 }
 
 // The [64 x 64] layout of a thread's 4x4 block of S = A B^T: rows
@@ -46,13 +55,9 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 __device__ __forceinline__ int s_row(int a) { return threadIdx.x / 16 + 16 * a; }
 __device__ __forceinline__ int s_col(int b) { return threadIdx.x % 16 + 16 * b; }
 
-// s = A B^T over the 128 channels; A, B: [64][kLD]
-__device__ __forceinline__ void mm_nt(const float* A, const float* B,
-                                      float (&s)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+// s += A B^T over the tiles' 128 channels; A, B: [64][kLD]
+__device__ __forceinline__ void mm_nt_acc(const float* A, const float* B,
+                                          float (&s)[4][4]) {
 #pragma unroll 4
   for (int c = 0; c < kC; c += 4) {
     float4 x[4], y[4];
@@ -73,6 +78,32 @@ __device__ __forceinline__ void mm_nt(const float* A, const float* B,
         t = fmaf(x[a].w, y[b].w, t);
         s[a][b] = t;
       }
+  }
+}
+
+// s = A B^T for the 64 rows at a0 of A [N, C] against the 64 rows at b0 of
+// B [N, C], over all C channels, 128 at a time through the tiles `as` and
+// `bs`. When C == kC the caller has loaded A's rows into `as` once and
+// only B's are loaded here. If `xs` is given, channels [xc0, xc0 + 128) of
+// X's rows b0 .. b0 + 63 land there with the first chunk. Starts with a
+// barrier, so the tiles may still be in use when it is called.
+template <int C>
+__device__ inline void s_tile(float (&s)[4][4], float* as, float* bs,
+                              const float* A, int a0, const float* B, int b0,
+                              int N, float* xs = nullptr,
+                              const float* X = nullptr, int xc0 = 0) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += kC) {
+    __syncthreads();
+    if (C != kC) load_chunk<C>(as, A, a0, N, c0);
+    load_chunk<C>(bs, B, b0, N, c0);
+    if (xs != nullptr && c0 == 0) load_chunk<C>(xs, X, b0, N, xc0);
+    __syncthreads();
+    mm_nt_acc(as, bs, s);
   }
 }
 
@@ -112,26 +143,6 @@ __device__ __forceinline__ void mm_nn_acc(const float* P, const float* V,
   }
 }
 
-// o += P^T X; P: [64][kLDP] (rows of P are the sum index), X: [64][kLD]
-__device__ __forceinline__ void mm_tn_acc(const float* P, const float* X,
-                                          float (&o)[8][4]) {
-  const int c0 = o_col(), r0 = o_row(0);
-#pragma unroll 4
-  for (int i = 0; i < kTile; ++i) {
-    const float4 p0 = *reinterpret_cast<const float4*>(P + i * kLDP + r0);
-    const float4 p1 = *reinterpret_cast<const float4*>(P + i * kLDP + r0 + 4);
-    const float4 x = *reinterpret_cast<const float4*>(X + i * kLD + c0);
-    fma4(o[0], p0.x, x);
-    fma4(o[1], p0.y, x);
-    fma4(o[2], p0.z, x);
-    fma4(o[3], p0.w, x);
-    fma4(o[4], p1.x, x);
-    fma4(o[5], p1.y, x);
-    fma4(o[6], p1.z, x);
-    fma4(o[7], p1.w, x);
-  }
-}
-
 // max and sum over the 16 lanes that share a row of S
 __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
@@ -145,21 +156,20 @@ __device__ __forceinline__ float row_sum(float v) {
 }
 
 // Running row max m and sum l of exp(s * scale - m) over all N keys for
-// the 64 query rows in qs (the thread's rows s_row(a)); ks is scratch.
-__device__ inline void row_stats(const float* qs, float* ks, const float* kb,
-                                 int N, float scale, float (&m)[4],
-                                 float (&l)[4]) {
+// the 64 rows at q0 of qb [N, C] (the thread's rows s_row(a)); qs holds
+// them when C == kC (else it is scratch), ks is scratch.
+template <int C>
+__device__ inline void row_stats(float* qs, float* ks, const float* qb,
+                                 int q0, const float* kb, int N, float scale,
+                                 float (&m)[4], float (&l)[4]) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = -INFINITY;
     l[a] = 0.f;
   }
   for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, kb, k0, N);
-    __syncthreads();
     float s[4][4];
-    mm_nt(qs, ks, s);
+    s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       float mx = -INFINITY;
@@ -177,6 +187,21 @@ __device__ inline void row_stats(const float* qs, float* ks, const float* kb,
       m[a] = m_new;
     }
   }
+}
+
+// a thread's rows o_row(r) of a 64 x 128 f32 accumulator, each divided by
+// div[r], to channels [c0, c0 + 128) of rows row0 + o_row(r) of dst [N, C]
+template <int C>
+__device__ __forceinline__ void store_rows(float* dst, const float (&o)[8][4],
+                                           int row0, int N, int c0,
+                                           const float (&div)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (row0 + o_row(r) < N) {
+      const float v[4] = {o[r][0] / div[r], o[r][1] / div[r],
+                          o[r][2] / div[r], o[r][3] / div[r]};
+      store4(dst + (size_t)(row0 + o_row(r)) * C + c0 + o_col(), v);
+    }
 }
 
 }  // namespace flash

@@ -1,11 +1,14 @@
 // bf16 tensor-core building blocks of the flash-attention kernels (K3a,
-// K3b): mma.sync m16n8k16 with f32 accumulation and ldmatrix fragment
+// K3b, K3c): mma.sync m16n8k16 with f32 accumulation and ldmatrix fragment
 // loads from bf16 tiles in shared memory.
 //
 // A block of 128 threads (4 warps) works on 64-row tiles; a warp owns 16
-// rows (the m16 of the product). Tiles keep C = 128 bf16 channels per row
-// with rows padded to 136 elements (272 bytes), so the eight 16-byte rows
-// one ldmatrix reads fall in distinct banks.
+// rows (the m16 of the product). A tile holds 128 bf16 channels per row
+// (one chunk of C) with rows padded to 136 elements (272 bytes), so the
+// eight 16-byte rows one ldmatrix reads fall in distinct banks. At C = 256
+// and 512 the kernels walk the channels in 128-wide chunks: q k^T sums over
+// the chunks, and each 128-channel slice of the output is its own pass, so
+// shared memory and the accumulators stay those of C = 128.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), g = lane / 4 and
 // t = lane % 4: an accumulator holds rows g and g + 8, columns 2t and
@@ -24,7 +27,7 @@ namespace flash_mma {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kC = 128;
+constexpr int kC = 128;  // channels of a tile: one chunk of C
 constexpr int kTile = 64;
 constexpr int kThreads = 128;
 constexpr int kLD = kC + 8;  // bf16 row stride of a tile
@@ -87,28 +90,32 @@ __device__ __forceinline__ void load_b_kn(unsigned (&b)[4], const bf16* tile,
   ldsm_x4_trans(b, tile + (k0 + lane() % 16) * kLD + n0 + (lane() / 16) * 8);
 }
 
-// rows [row0, row0 + 64) of src [N, 128] into a tile; rows at or beyond N
-// are zero
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int N) {
+// rows [row0, row0 + 64) and channels [c0, c0 + 128) of src [N, C] into
+// a tile; rows at or beyond N are zero
+template <int C>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
+                                           int row0, int N, int c0) {
   for (int i = threadIdx.x; i < kTile * kC / 8; i += kThreads) {
     const int r = i / (kC / 8), c = (i % (kC / 8)) * 8;
     const uint4 v = row0 + r < N
                         ? *reinterpret_cast<const uint4*>(
-                              src + (size_t)(row0 + r) * kC + c)
+                              src + (size_t)(row0 + r) * C + c0 + c)
                         : make_uint4(0u, 0u, 0u, 0u);
     *reinterpret_cast<uint4*>(dst + r * kLD + c) = v;
   }
 }
 
-// s = A B^T for the warp's 16 rows of `a_tile` (from m0) against the 64
-// rows of `b_tile`, over the 128 channels: 8 accumulator tiles
-__device__ __forceinline__ void mm_abt(float (&s)[8][4], const bf16* a_tile,
-                                       int m0, const bf16* b_tile) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+// rows [row0, row0 + 64) of src [N, 128] into a tile
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int row0, int N) {
+  load_chunk<kC>(dst, src, row0, N, 0);
+}
+
+// s += A B^T for the warp's 16 rows of `a_tile` (from m0) against the 64
+// rows of `b_tile`, over the tiles' 128 channels: 8 accumulator tiles
+__device__ __forceinline__ void mm_abt_acc(float (&s)[8][4],
+                                           const bf16* a_tile, int m0,
+                                           const bf16* b_tile) {
 #pragma unroll
   for (int kk = 0; kk < kC / 16; ++kk) {
     unsigned a[4];
@@ -120,6 +127,38 @@ __device__ __forceinline__ void mm_abt(float (&s)[8][4], const bf16* a_tile,
       mma(s[2 * n2], a, b[0], b[1]);
       mma(s[2 * n2 + 1], a, b[2], b[3]);
     }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&s)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+}
+
+// s = A B^T for the warp's 16 of the 64 rows at a0 of A [N, C] against the
+// 64 rows at b0 of B [N, C], over all C channels, 128 at a time through
+// the tiles `as` and `bs`. When C == kC the caller has loaded A's rows
+// into `as` once and only B's are loaded here. If `xs` is given, channels
+// [xc0, xc0 + 128) of X's rows b0 .. b0 + 63 land there with the first
+// chunk (the next product's operand, loaded in the same window). Starts
+// with a barrier, so the tiles may still be in use when it is called.
+template <int C>
+__device__ inline void s_tile(float (&s)[8][4], bf16* as, bf16* bs,
+                              const bf16* A, int a0, const bf16* B, int b0,
+                              int N, bf16* xs = nullptr,
+                              const bf16* X = nullptr, int xc0 = 0) {
+  const int m0 = (threadIdx.x / 32) * 16;
+  zero(s);
+#pragma unroll 1
+  for (int c0 = 0; c0 < C; c0 += kC) {
+    __syncthreads();
+    if (C != kC) load_chunk<C>(as, A, a0, N, c0);
+    load_chunk<C>(bs, B, b0, N, c0);
+    if (xs != nullptr && c0 == 0) load_chunk<C>(xs, X, b0, N, xc0);
+    __syncthreads();
+    mm_abt_acc(s, as, m0, bs);
   }
 }
 
@@ -155,20 +194,17 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Running max m and sum l of exp(s * scale - m) over all N keys for the
-// warp's rows g and g + 8 (index 0 and 1) of the q tile `qs`; ks is
-// scratch for the k tiles.
-__device__ inline void row_stats(const bf16* qs, bf16* ks, const bf16* kb,
-                                 int N, float scale, float (&m)[2],
-                                 float (&l)[2]) {
-  const int m0 = (threadIdx.x / 32) * 16;
+// warp's rows g and g + 8 (index 0 and 1) of the 64 rows at q0 of qb
+// [N, C]; qs holds them when C == kC (else it is scratch), ks is scratch.
+template <int C>
+__device__ inline void row_stats(bf16* qs, bf16* ks, const bf16* qb, int q0,
+                                 const bf16* kb, int N, float scale,
+                                 float (&m)[2], float (&l)[2]) {
   m[0] = m[1] = -INFINITY;
   l[0] = l[1] = 0.f;
   for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, kb, k0, N);
-    __syncthreads();
     float s[8][4];
-    mm_abt(s, qs, m0, ks);
+    s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -188,6 +224,27 @@ __device__ inline void row_stats(const bf16* qs, bf16* ks, const bf16* kb,
       l[h] = l[h] * expf(m[h] - m_new) + quad_sum(sum);
       m[h] = m_new;
     }
+  }
+}
+
+// The warp's 16 rows of a 64 x 128 f32 accumulator o, rounded to bf16, to
+// channels [c0, c0 + 128) of rows row0 + m0 + g (+ 8) of dst [N, C], each
+// row divided by div[h] first
+template <int C>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&o)[16][4],
+                                           int row0, int N, int c0,
+                                           const float (&div)[2]) {
+  const int m0 = (threadIdx.x / 32) * 16, g = lane() / 4, t = lane() % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + m0 + g + 8 * h;
+    if (row >= N) continue;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * C + c0 + n * 8 +
+                                         2 * t) =
+          __floats2bfloat162_rn(o[n][2 * h] / div[h],
+                                o[n][2 * h + 1] / div[h]);
   }
 }
 

@@ -1,54 +1,42 @@
 """Single-head full self-attention over image tokens
 (JAX counterpart: ``infodiffusion_tpu/ops/attention.py``).
 
-``softmax(q k^T / sqrt(C)) v`` with f32 logits and softmax. Routing as in
-the JAX package: N >= ``flash_min_tokens()`` (``INFODIFF_FLASH_ATTN_MIN_TOKENS``,
-default 512) takes the flash forward K3a, fewer tokens the attention
-kernel K2 (``ops/cuda``). Both directions are one ``autograd.Function``
-whose backward is the flash backward K3b at every N. On a CPU tensor the
-same Function runs the plain forward and the explicit plain backward.
-Nothing is saved for backward when no input needs a gradient. The JAX
-package's ring (sequence-parallel) route is not ported.
+``softmax(q k^T / sqrt(C)) v`` with f32 logits and softmax. Routing as the
+JAX package routes on its device (``flash_route``, ``ops/cuda``): below
+``INFODIFF_FLASH_ATTN_MIN_TOKENS`` (default 512) or under
+``INFODIFF_DISABLE_FLASH_ATTENTION=1`` the attention kernel K2; from there
+the flash forward K3a where the JAX primary kernel's plan holds (N, C,
+dtype), else the online forward K3c where its tiles divide N, else K2.
+Both directions are one ``autograd.Function`` whose backward is the flash
+backward K3b at every N. A CUDA tensor launches the routed kernel; a CPU
+tensor takes the same route through the plain versions
+(``attention_reference`` for K2 and K3a, which share a contract, and
+``flash_attention_online_reference`` for K3c) and the explicit plain
+backward. Nothing is saved for backward when no input needs a gradient.
+The JAX package's ring (sequence-parallel) route is not ported.
 """
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from infodiffusion_tpu_torch.ops.cuda.attention import (
-    attention_cuda,
-    attention_reference,
-)
 from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd_cuda,
     flash_attention_bwd_reference,
-    flash_attention_cuda,
+    flash_min_tokens,
+    flash_route,
+    forward_for,
 )
 
-
-def flash_min_tokens() -> int:
-    return int(os.environ.get("INFODIFF_FLASH_ATTN_MIN_TOKENS", "512"))
-
-
-def attention_route(n_tokens: int) -> str:
-    """'flash' (K3a) or 'attention' (K2) for a call with ``n_tokens``."""
-    return "flash" if n_tokens >= flash_min_tokens() else "attention"
+__all__ = ["flash_min_tokens", "flash_route", "single_head_attention"]
 
 
 class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.is_cuda:
-            kernel = (flash_attention_cuda
-                      if attention_route(q.shape[1]) == "flash"
-                      else attention_cuda)
-            out = kernel(q, k, v)
-        else:
-            # K2 and K3a share one contract and so one plain version
-            out = attention_reference(q, k, v)
+        route = flash_route(q.shape[1], q.shape[2], q.dtype)
+        out = forward_for(route, q.is_cuda)(q, k, v)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(q, k, v)
         return out

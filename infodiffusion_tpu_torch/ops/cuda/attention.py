@@ -1,4 +1,5 @@
-"""K2: single-head attention, a CUDA kernel and its plain version.
+"""K2 and K2': single-head attention, CUDA kernels and their plain
+versions.
 
 Replaces ``infodiffusion_tpu/ops/pallas/attention.py``
 (``attention_pallas``, ``_kernel``). Kernel: ``csrc/attention.cu``.
@@ -17,6 +18,14 @@ can be rounded exactly as the contract says. A block owns 16 query rows
 and walks k/v in 32-row tiles through shared memory, so it takes any N.
 It is compiled for C = 128 (the InfoDiff UNet), 256 and 512 (the vanilla
 UNet and the VAE, ch_mult (1, 2, 4, 8)); any other C raises.
+
+K2' replaces ``tools/microbench_attention.py`` (``attention_pallas_tiled``
+/ ``_tiled_kernel``), the attention microbenchmark's variant with ``tb``
+batch elements per grid step: q, k, v upcast to f32, f32 logits and
+softmax, PV with w unrounded in f32, the output in v's dtype. In f32 it is
+K2's function; in bf16 it differs from K2 by the rounding of w. Its kernel
+is K2's, instantiated without that rounding, a block walking the same
+query rows of ``tb`` batch elements (``csrc/attention.cu``).
 """
 
 from __future__ import annotations
@@ -71,3 +80,50 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 attention_cuda.launches = 0
 attention_cuda.launches_by_c = dict.fromkeys(CHANNELS, 0)  # per C
+
+
+def attention_tiled_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, tb: int = 8) -> torch.Tensor:
+    """Plain PyTorch K2': q, k, v [B, N, C] -> [B, N, C] in v's dtype; B
+    must be a multiple of ``tb``, as the JAX tool asserts."""
+    _check_tb(q.shape[0], tb)
+    f32 = torch.float32
+    C = q.shape[-1]
+    logits = torch.einsum("bnc,bmc->bnm", q.to(f32), k.to(f32)) * (C ** -0.5)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bnm,bmc->bnc", w, v.to(f32)).to(v.dtype)
+
+
+def _check_tb(batch: int, tb: int) -> None:
+    if tb < 1 or batch % tb:
+        raise ValueError(f"tb={tb} must divide the batch {batch}")
+
+
+def attention_tiled_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         tb: int = 8) -> torch.Tensor:
+    """Launch K2' on contiguous CUDA q, k, v [B, N, C] of one dtype (f32 or
+    bf16), C in ``CHANNELS``, ``tb`` dividing B. Raises on anything else."""
+    _lib.check_tensor(q, "q", dtypes=tuple(_lib.DTYPE_CODES))
+    if q.ndim != 3 or q.shape[-1] not in CHANNELS or q.shape[1] == 0:
+        raise ValueError(
+            f"tiled attention kernel takes [B, N>0, C] with C in {CHANNELS}, "
+            f"got {tuple(q.shape)}"
+        )
+    _check_tb(q.shape[0], tb)
+    for name, t in (("k", k), ("v", v)):
+        _lib.check_tensor(t, name, shape=q.shape, dtypes=(q.dtype,),
+                          device=q.device)
+    B, N, C = q.shape
+    out = torch.empty_like(v)
+    lib = _lib.library().lib
+    with torch.cuda.device(q.device):
+        err = lib.infodiff_attention_tiled(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, C,
+            _lib.DTYPE_CODES[q.dtype], tb, _lib.stream_handle(),
+        )
+    _lib.check_launch(err, "attention_tiled")
+    attention_tiled_cuda.launches += 1
+    return out
+
+
+attention_tiled_cuda.launches = 0

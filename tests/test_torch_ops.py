@@ -432,14 +432,17 @@ def test_attention_function_grads_match_jax_autodiff():
 
 
 def test_flash_route_threshold(monkeypatch):
-    """N >= flash_min_tokens() (default 512, the JAX env var) takes K3a."""
+    """N >= flash_min_tokens() (default 512, the JAX env var) takes K3a at
+    the C=128 bf16 sites while its plan fits."""
     monkeypatch.delenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", raising=False)
+    monkeypatch.delenv("INFODIFF_DISABLE_FLASH_ATTENTION", raising=False)
+    route = functools.partial(pattn.flash_route, c=128, dtype=torch.bfloat16)
     assert pattn.flash_min_tokens() == 512
-    assert [pattn.attention_route(n) for n in (64, 256, 511, 512, 1024)] == [
+    assert [route(n) for n in (64, 256, 511, 512, 1024)] == [
         "attention"] * 3 + ["flash"] * 2
     monkeypatch.setenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", "64")
-    assert pattn.attention_route(64) == "flash"
-    assert pattn.attention_route(63) == "attention"
+    assert route(64) == "flash"
+    assert route(63) == "attention"
 
 
 def test_no_grad_saves_nothing_for_backward():
