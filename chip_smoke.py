@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE and 512px paths on one NVIDIA GPU.
+VAE, 512px and ch-32 (mnist, chairs) paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,8 @@ on the card. Phases, each printing one line or a few, any failure raising:
    against its plain PyTorch version on the card, at the shapes of the
    flagship CelebA-64 InfoDiff (AuxiliaryUNet ch 64, ch_mult (1,2,2,2),
    attention at level 2, a_dim 256, T 1000), with errors and CUDA-event
-   times of both.
+   times of both, and K2's launch (grid, block, shared memory, body,
+   blocks per SM).
 4. the slice, flagship size, bf16, random weights from a numpy seed:
    ``LatentDiffusionProcess.sampling`` (the full T=1000 latent trajectory,
    K4) then ``InfoDiffusionPipeline.generate(steps=100)`` (K1 and K2 in the
@@ -58,8 +59,11 @@ on the card. Phases, each printing one line or a few, any failure raising:
    K6 (fused shortcut) at every shortcut site of one flagship InfoDiff
    forward (13) and one vanilla UNet forward (15) at B=64, and the host
    time per shortcut call on both routes at the vanilla sites; K5 (one
-   LatentUNet forward) at B=128 d=256; K2 at C=256 (N=256) and C=512
-   (N=64), B=64.
+   LatentUNet forward) at B=128 d=256; K2 at C=256 (N=256), C=512
+   (N=64) and C=64 (N=64 and 256: the mnist and chairs InfoDiff), B=64,
+   with its launch; K2' at the C=64 shapes (errors; in bf16 also its mean
+   error under a tenth of K2's against w unrounded, which a K2' without
+   its lo product would not be).
 13. the new paths at full width, bf16, random weights: the flagship
    InfoDiff, the vanilla Diff (UNet ch 64, ch_mult (1,2,4,8), attention at
    level 2) and the VAE (a_dim 256, (1,2,4,8)): two-phase sampling (T=1000,
@@ -79,11 +83,14 @@ on the card. Phases, each printing one line or a few, any failure raising:
    f32 and bf16 with CUDA-event times, bound and SDPA's time (on the first
    of its flash, memory-efficient and math backends that takes the shape):
    K3c (online forward) at [8,16384,128] (the InfoDiff at 512px),
-   [2,16384,256] and [8,4096,512] (the vanilla UNet at 512px); K3a at
-   [8,4096,128] (the 512px middle block), [32,1024,256] and [16,1024,512];
-   K3b at [64,256,256], [64,64,512], [4,16384,128] and [4,4096,128]; K2'
-   (tiled, all f32) at [128,256,128] tb=8; then K1 (B=8 and 4), its
-   backward (B=4) and K4 (B=8) at the 512px paths' shapes, errors only.
+   [2,16384,256] and [8,4096,512] (the vanilla UNet at 512px) and
+   [2,4096,64]; K3a at [8,4096,128] (the 512px middle block),
+   [32,1024,256], [16,1024,512] and [8,1024,64]; K3b at [64,256,256],
+   [64,64,512], [4,16384,128], [4,4096,128], [64,256,64] and [64,64,64];
+   K2 and K2' at [2,4096,128], beyond the resident strip (two passes); K2'
+   (all f32) at [128,256,128] tb=8, its bf16 bound at the bf16 peak with
+   its three products (q k^T, PV on w's hi and lo parts); then K1 (B=8 and 4), its backward (B=4)
+   and K4 (B=8) at the 512px paths' shapes, errors only.
 16. the 512px paths, bf16, random weights: bench.py's InfoDiff at
    INFODIFF_BENCH_SIZE=512 (latents T=1000 then DDIM-100 at B=8; encode
    B=8; make_train_step B=4, 1 + 2 steps), the vanilla Diff and the VAE
@@ -94,8 +101,20 @@ on the card. Phases, each printing one line or a few, any failure raising:
    online route forced (the port's plan limit set in-process), one 512px
    InfoDiff forward at B=1 on the real route, the vanilla Diff's and the
    VAE's loss_and_grads at 64px B=2 per gradient leaf.
+18. the InfoDiff at unets_channels 32 as ``with_dataset_config()`` builds
+   it for mnist (32px, 1 channel) and chairs (64px), a_dim 32, bf16, random
+   weights: its UNet and Encoder attend at C=64 (level 2 N=64 / 256, the
+   middle block N=16 / 64, all K2; K3b backward). ``make_train_step``
+   (1 + 3 steps) and DDIM-100, B=64; mnist's latent prior with turbo on the
+   per-forward route (it warns and samples unquantized through K5), B=64;
+   exact launches per kernel at C=64; then the mnist loss and every
+   gradient leaf, f32, B=2, card against CPU.
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
+
+Every time is held to its bound: an event time, or a device time (K2 and
+SDPA, from a CUDA graph of calls on copies of the inputs that fill the L2
+twice over, whose replay must write every output), below the bound fails.
 
 The line before the last is one JSON object with each kernel's launches
 (summed over the counted runs of the main paths, and per path), error,
@@ -151,6 +170,7 @@ from infodiffusion_tpu_torch.ops.cuda.adagn import (
 from infodiffusion_tpu_torch.ops.cuda import flash_attention as K3
 from infodiffusion_tpu_torch.ops.cuda.attention import (
     attention_cuda,
+    attention_plan,
     attention_reference,
     attention_tiled_cuda,
     attention_tiled_reference,
@@ -214,6 +234,15 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # the card's published peaks (H100 SXM, dense) and memory rate
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM = 3.35e12
+# the card's L2 (H100: 50 MB): the device timer's calls rotate through
+# copies of their inputs that fill it twice over, so each reads from HBM
+L2_BYTES = 50 * 2**20
+# K2' in bf16 against K2 on the same inputs, both against K2''s plain
+# version (w unrounded): K2' rounds only its output, K2 also w, so K2''s
+# mean abs error is ~1/700 of K2's at the phases' shapes (the two
+# computed in f64 on the CPU); a K2' without its lo product computes K2's
+# function and would read the same as K2
+TILED_MEAN_SHARE = 0.1
 # DDIM steps of the int8 slice on every route (bench.py's headline)
 INT8_STEPS = 100
 INT8_ROUTES = {
@@ -399,6 +428,108 @@ def sdpa_ms(q, k, v, reps, do=None):
     raise RuntimeError("no SDPA backend takes the shape")
 
 
+def at_least(what, ms, bound_ms):
+    """``ms``, which raises when it is below ``bound_ms``: no measurement
+    of the work can be."""
+    if not ms >= bound_ms:
+        raise AssertionError(f"{what}: {ms:.5f} ms is below its bound "
+                             f"{bound_ms:.5f} ms")
+    return ms
+
+
+def attention_work(B, N, C, e, products=2):
+    """(operations, bytes) of softmax(q k^T) v on [B, N, C] of ``e``-byte
+    elements: ``products`` [N, N, C] products (q k^T and PV; K2' in bf16
+    runs PV twice, on w's hi and lo parts), q, k and v read and the output
+    written once."""
+    return 2 * products * B * N * N * C, 4 * B * N * C * e
+
+
+def device_ms(what, fn, args, bound_ms, reps: int = 20):
+    """Milliseconds of device time per call of ``fn(*args)``: at least
+    ``reps`` calls, on copies of ``args`` that fill the L2 twice over (each
+    call reads its inputs from HBM, as the bound assumes), captured in one
+    CUDA graph and replayed between CUDA events, so the host's launch cost,
+    which the event times above hold where a call is short, drops out.
+    Raises where the replay left a call's output unwritten (the outputs
+    are set to NaN before it) or off the eager call's, or where the reading
+    is below ``bound_ms``."""
+    want = fn(*args).float()
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+    sets = [args] + [tuple(t.clone() for t in args)
+                     for _ in range(copies - 1)]
+    calls = max(reps, copies)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        outs = [fn(*sets[i % copies]) for i in range(calls)]
+    graph.replay()  # the first replay uploads the graph
+    for out in outs:
+        out.fill_(math.nan)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / calls
+    bad = [i for i, out in enumerate(outs)
+           if not torch.allclose(out.float(), want, rtol=1e-2, atol=1e-2)]
+    if bad:
+        raise AssertionError(f"{what}: the graph's replay did not write the "
+                             f"output of calls {bad[:8]} of {calls} "
+                             f"(reading {ms:.5f} ms)")
+    del outs, sets, graph
+    return at_least(f"{what}, device time", ms, bound_ms)
+
+
+def k2_device_str(q, k, v) -> str:
+    """Device ms of K2 and of SDPA on the same inputs, each held to K2's
+    bound at the shape."""
+    B, N, C = q.shape
+    bound = Bound()
+    bound.add(*attention_work(B, N, C, q.element_size()), PEAK["bf16"])
+    shape = f"[{B},{N},{C}]"
+    k2 = device_ms(f"K2 {shape}", attention_cuda, (q, k, v), bound.ms)
+    sdpa = device_ms(f"SDPA {shape}", F.scaled_dot_product_attention,
+                     tuple(t.unsqueeze(1) for t in (q, k, v)), bound.ms)
+    return (f"device {k2:.4f} ms against SDPA's {sdpa:.4f} ms (bound "
+            f"{bound.ms:.4f})")
+
+
+def check_tiled(q, k, v, tb, tag, results) -> str:
+    """K2' against its plain version; in bf16 also its mean abs error
+    against that of K2 on the same inputs (``TILED_MEAN_SHARE``)."""
+    got = attention_tiled_cuda(q, k, v, tb)
+    want = attention_tiled_reference(q, k, v, tb)
+    torch.cuda.synchronize()
+    abs_e, rel_e = rel_err(got, want)
+    results.record("attention_tiled", tag, abs_e, rel_e, TOL[tag])
+    line = f"rel err {rel_e:.2e} (abs {abs_e:.2e})"
+    if q.dtype == torch.bfloat16:
+        want = want.double()
+        mine = (got.double() - want).abs().mean().item()
+        k2s = (attention_cuda(q, k, v).double() - want).abs().mean().item()
+        if not mine < TILED_MEAN_SHARE * k2s:
+            raise AssertionError(
+                f"K2' {tag} {tuple(q.shape)}: mean abs error {mine:.3e} "
+                f"against w unrounded is not under {TILED_MEAN_SHARE} of "
+                f"K2's {k2s:.3e}")
+        line += (f"; mean abs error against w unrounded {mine:.2e}, K2's "
+                 f"{k2s:.2e}")
+    return line
+
+
+def plan_str(B, N, C, dtype, tiled=False) -> str:
+    """The launch of K2 (of K2' with ``tiled``) at [B, N, C]: grid, block,
+    shared memory, body and resident blocks per SM."""
+    p = attention_plan(B, N, C, dtype, tiled)
+    return (f"{p['blocks']} blocks x {p['threads']} threads, BQ {p['bq']}, "
+            f"{p['smem'] / 1024:.1f} KB, "
+            f"{'one-pass strip' if p['strip'] else 'two passes'}, "
+            f"{p['per_sm']} per SM")
+
+
 def init_weights_(model: torch.nn.Module, seed: int,
                   bias_std: float = 0.0) -> torch.nn.Module:
     """Xavier-uniform weights (the tail conv included, so eps is not ~0),
@@ -560,8 +691,7 @@ def check_attention(device, reps, results):
         bnd = Bound()
         e = torch.finfo(dtype).bits // 8
         for n in (256, 64):
-            bnd.add(4 * BATCH * n * n * 128, 4 * BATCH * n * 128 * e,
-                    PEAK[tag])
+            bound = bnd.add(*attention_work(BATCH, n, 128, e), PEAK[tag])
             q, k, v = (torch.randn(BATCH, n, 128, generator=g,
                                    device=device).to(dtype) for _ in range(3))
             lib_ms += sdpa_ms(q, k, v, reps)[0]
@@ -570,10 +700,14 @@ def check_attention(device, reps, results):
             abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
             km, pm = paired_ms(lambda: attention_cuda(q, k, v),
                                lambda: attention_reference(q, k, v), reps)
+            at_least(f"K2 {tag} N={n}", km, bound)
             ms, plain_ms = ms + km, plain_ms + pm
+            dev = (f"; {k2_device_str(q, k, v)}" if dtype == torch.bfloat16
+                   else "")
             print(f"[K2 attention] {tag} B={BATCH} N={n} C=128: rel "
                   f"err {rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
-                  f"{pm:.4f} ms")
+                  f"{pm:.4f} ms, bound {bound:.4f} ms; "
+                  f"{plan_str(BATCH, n, 128, dtype)}{dev}")
             results.record("attention", tag, abs_e, rel_e, TOL[tag])
         print(f"[K2 attention] {tag}: N=256 and 64 once each {ms:.4f} ms, "
               f"plain {plain_ms:.4f}, bound {bnd.ms:.4f} ({bnd.by}), "
@@ -781,9 +915,10 @@ def leaf_errors(got: dict, want: dict):
 
 
 def train_run(size, batch, steps, device, smi, model=None, label=None,
-              want=None, no_grad=NO_GRAD_PARAMS, profile=False):
+              want=None, no_grad=NO_GRAD_PARAMS, profile=False, channels=3):
     """Drive ``make_train_step`` on ``model`` (default: the flagship
-    InfoDiff for ``size``-pixel images), 1 warm-up step and ``steps`` timed;
+    InfoDiff for ``size``-pixel images of ``channels`` channels), 1
+    warm-up step and ``steps`` timed;
     checks a finite loss, that every parameter but ``no_grad`` has a
     non-zero gradient and moved, and the launch counts of the timed steps
     (exactly ``want`` where given), which it returns; with ``profile``,
@@ -795,7 +930,7 @@ def train_run(size, batch, steps, device, smi, model=None, label=None,
     state = create_train_state(model, seed=0, tx=tx)
     step = make_train_step(model, tx)
     x = torch.from_numpy(np.random.RandomState(size).randn(
-        batch, size, size, 3).astype(np.float32)).to(device)
+        batch, size, size, channels).astype(np.float32)).to(device)
     before = {n: p.detach().clone() for n, p in state.params.items()}
     state, _ = step(state, x, 0)  # warm-up: cuDNN plans, first launches
     torch.cuda.synchronize()
@@ -963,6 +1098,7 @@ def check_int8_conv(sites, device, reps, results):
         ops = 2 * B * ho * wo * 9 * c * cout
         b_ms = bnd.add(ops, B * h * w * c + 9 * c * cout
                        + 4 * B * ho * wo * cout, PEAK["int8"])
+        at_least(f"int8 conv {h}x{w} C={c}->{cout}", km, b_ms)
         ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
         print(f"[int8 conv] B={B} {h}x{w} C={c}->{cout} stride {s}: s32 max "
               f"abs diff {diff:.0f}; {km:.4f} ms ({ops / km / 1e9:.1f} TOP/s) "
@@ -1041,6 +1177,8 @@ def check_qconv(sites, device, reps, results):
         ops = 2 * B * h * w * 9 * ctot * cout
         b_ms = bnd.add(ops, B * h * w * (2 * ctot + 2 * cout) + 8 * B * ctot
                        + 9 * ctot * cout + 8 * cout, PEAK["int8"])
+        at_least(f"K7 v1 B={B}", k1, b_ms)
+        at_least(f"K7 v2 B={B}", k2, b_ms)
         ms1, ms2, plain_ms = ms1 + k1, ms2 + k2, plain_ms + pm
         print(f"[K7 qconv] B={B} {tag}: rel L2 {l2:.2e}, max abs {rel_e:.2e} "
               f"of max; int8 flips {n_flip} of {B * h * w * ctot}; v2 == v1 "
@@ -1356,6 +1494,7 @@ def check_shortcut(sites, device, reps, results):
             ops = 2 * M * ctot * n
             b_ms = bnd.add(ops, (M * (ctot + 2 * n) + ctot * n) * e + 4 * n,
                            PEAK[tag])
+            at_least(f"K6 {tag} {what}", km, b_ms)
             ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
             print(f"[K6 shortcut] {tag} B={B} {what}: rel err {rel_e:.2e} "
                   f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms, "
@@ -1458,40 +1597,59 @@ def check_latent_mlp(lat_models, device, reps, results):
 
 def check_attention_wide(device, reps, results):
     """K2 at the vanilla UNet's and the VAE's C=256 (N=256) and C=512
-    (N=64), B=64."""
+    (N=64), and at the InfoDiff's C=64 at ch 32 (mnist N=64, chairs N=256,
+    the C=64 line their sum), B=64; K2' at the C=64 shapes, errors only."""
     g = torch.Generator(device=device).manual_seed(23)
     B = SLICE_BATCH["kernels"]
-    for c, n in ((256, 256), (512, 64)):
+    for c, ns in ((256, (256,)), (512, (64,)), (64, (64, 256))):
         name = f"attention_c{c}"
         for tag, dtype in DTYPES.items():
             e = torch.finfo(dtype).bits // 8
-            q, k, v = (torch.randn(B, n, c, generator=g, device=device)
-                       .to(dtype) for _ in range(3))
-            got = attention_cuda(q, k, v)
-            torch.cuda.synchronize()
-            abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
-            results.record(name, tag, abs_e, rel_e, TOL[tag])
-            km, pm = paired_ms(lambda: attention_cuda(q, k, v),
-                               lambda: attention_reference(q, k, v), reps)
-            lm = sdpa_ms(q, k, v, reps)[0]
+            ms = plain_ms = lib_ms = 0.0
             bnd = Bound()
-            bnd.add(4 * B * n * n * c, 4 * B * n * c * e, PEAK[tag])
-            print(f"[K2 attention] {tag} B={B} N={n} C={c}: rel err "
-                  f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
-                  f"{pm:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by}), "
-                  f"F.scaled_dot_product_attention {lm:.4f} ms")
-            results.time(name, tag, km, pm, bnd, lm)
+            for n in ns:
+                q, k, v = (torch.randn(B, n, c, generator=g, device=device)
+                           .to(dtype) for _ in range(3))
+                got = attention_cuda(q, k, v)
+                torch.cuda.synchronize()
+                abs_e, rel_e = rel_err(got, attention_reference(q, k, v))
+                results.record(name, tag, abs_e, rel_e, TOL[tag])
+                km, pm = paired_ms(lambda: attention_cuda(q, k, v),
+                                   lambda: attention_reference(q, k, v), reps)
+                lm = sdpa_ms(q, k, v, reps)[0]
+                bound = bnd.add(*attention_work(B, n, c, e), PEAK[tag])
+                at_least(f"K2 {tag} [{B},{n},{c}]", km, bound)
+                ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
+                dev = (f"; {k2_device_str(q, k, v)}"
+                       if dtype == torch.bfloat16 else "")
+                print(f"[K2 attention] {tag} B={B} N={n} C={c}: rel err "
+                      f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain "
+                      f"{pm:.4f} ms, bound {bound:.4f} ms, "
+                      f"F.scaled_dot_product_attention {lm:.4f} ms; "
+                      f"{plan_str(B, n, c, dtype)}{dev}")
+                if c == 64:  # K2' at the same shapes (timed in phase 15)
+                    print(f"[K2' tiled] {tag} B={B} N={n} C={c} "
+                          f"tb={TILED_TB}: "
+                          f"{check_tiled(q, k, v, TILED_TB, tag, results)}")
+            results.time(name, tag, ms, plain_ms, bnd, lib_ms)
 
 
 # phase 15: the high-resolution attention kernels at the shapes of the
 # 512px InfoDiff (K3c C=128 at N=16384, K3a at its middle block's N=4096,
 # K3b at both in training), the vanilla UNet at 512px (K3c C=256 at level
 # 2, C=512 in the middle block), at 128px / 256px (K3a C=256 / 512) and at
-# 64px (K3b C=256 / 512), and K2' at the microbenchmark's first shape
-ONLINE_SHAPES = ((8, 16384, 128), (2, 16384, 256), (8, 4096, 512))
-PRIMARY_SHAPES = ((8, 4096, 128), (32, 1024, 256), (16, 1024, 512))
+# 64px (K3b C=256 / 512); at C=64, K3a and K3c where the ch-32 InfoDiff's
+# level 2 would take them (128px N=1024 on K3a, 256px N=4096 with the
+# online route) and K3b at the mnist / chairs training shapes (N=64 and
+# 256, one line); K2 beyond its resident strip (the two-pass body), and
+# K2' at the microbenchmark's first shape
+ONLINE_SHAPES = ((8, 16384, 128), (2, 16384, 256), (8, 4096, 512),
+                 (2, 4096, 64))
+PRIMARY_SHAPES = ((8, 4096, 128), (32, 1024, 256), (16, 1024, 512),
+                  (8, 1024, 64))
 BWD_SHAPES = ((64, 256, 256), (64, 64, 512), (4, 16384, 128),
-              (4, 4096, 128))
+              (4, 4096, 128), (64, 256, 64), (64, 64, 64))
+STREAM_SHAPE = (2, 4096, 128)
 TILED_SHAPE, TILED_TB = (128, 256, 128), 8
 
 
@@ -1504,9 +1662,20 @@ def check_flash_wide(device, reps, results):
     fwd = [("K3c online", "flash_attention_online", flash_attention_online_cuda,
             flash_attention_online_reference, s) for s in ONLINE_SHAPES] + [
         ("K3a flash fwd", "flash_attention", flash_attention_cuda,
-         attention_reference, s) for s in PRIMARY_SHAPES]
+         attention_reference, s) for s in PRIMARY_SHAPES] + [
+        ("K2 attention, two passes", "attention", attention_cuda,
+         attention_reference, STREAM_SHAPE)]
+    # the C=128 lines keep phase 3's (K2) and phase 6's (K3a, K3b) times
+    keep = {"attention", "flash_attention", "flash_attention_bwd"}
     for tag, dtype in DTYPES.items():
         e = torch.finfo(dtype).bits // 8
+        timing = {}  # name -> [ms, plain ms, Bound, library ms], summed
+
+        def add_time(name, km, pm, work, lm):
+            t = timing.setdefault(name, [0.0, 0.0, Bound(), 0.0])
+            t[0], t[1], t[3] = t[0] + km, t[1] + pm, t[3] + lm
+            return t[2].add(*work, PEAK[tag])
+
         for label, base, kernel, plain, (B, N, C) in fwd:
             name = kernel_name(base, C)
             q, k, v = (torch.randn(B, N, C, generator=g, device=device)
@@ -1519,15 +1688,19 @@ def check_flash_wide(device, reps, results):
             km, pm = paired_ms(lambda: kernel(q, k, v),
                                lambda: plain(q, k, v), reps)
             lm, backend = sdpa_ms(q, k, v, reps)
-            bnd = Bound()
-            bnd.add(4 * B * N * N * C, 4 * B * N * C * e, PEAK[tag])
+            bound = add_time(name, km, pm, attention_work(B, N, C, e), lm)
+            at_least(f"{label} {tag} [{B},{N},{C}]", km, bound)
+            plan = ""
+            if kernel is attention_cuda:
+                plan = f"; {plan_str(B, N, C, dtype)}"
+                if dtype == torch.bfloat16:
+                    plan += f"; {k2_device_str(q, k, v)}"
             print(f"[{label}] {tag} B={B} N={N} C={C}: rel err {rel_e:.2e} "
                   f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms "
                   f"({4 * B * N * N * C / km / 1e9:.1f} TFLOP/s counting "
-                  f"4BN^2C), bound {bnd.ms:.4f} ms ({bnd.by}), "
-                  f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")
-            if name != "flash_attention":  # K3a at C=128 keeps phase 6's
-                results.time(name, tag, km, pm, bnd, lm)
+                  f"4BN^2C), bound {bound:.4f} ms, "
+                  f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms"
+                  f"{plan}")
             del q, k, v
             torch.cuda.empty_cache()
         for B, N, C in BWD_SHAPES:
@@ -1548,39 +1721,52 @@ def check_flash_wide(device, reps, results):
                 lambda: flash_attention_bwd_reference(q, k, v, do), reps,
                 1 if N > 4096 else None)
             lm, backend = sdpa_ms(q, k, v, reps, do)
-            bnd = Bound()
-            bnd.add(10 * B * N * N * C, 7 * B * N * C * e, PEAK[tag])
+            bound = add_time(name, km, pm,
+                             (10 * B * N * N * C, 7 * B * N * C * e), lm)
+            at_least(f"K3b {tag} [{B},{N},{C}]", km, bound)
             print(f"[K3b flash bwd] {tag} B={B} N={N} C={C}: rel err "
                   f"{', '.join(errs)}; {km:.4f} ms vs plain {pm:.4f} ms, "
-                  f"bound {bnd.ms:.4f} ms ({bnd.by}), backward of "
+                  f"bound {bound:.4f} ms, backward of "
                   f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")
-            if C != 128:  # K3b at C=128 keeps phase 6's shapes
-                results.time(name, tag, km, pm, bnd, lm)
             del q, k, v, do
             torch.cuda.empty_cache()
+        for name, (km, pm, bnd, lm) in timing.items():
+            if name not in keep:
+                results.time(name, tag, km, pm, bnd, lm)
+        # K2' at the resident-limit-exceeding N (its two-pass body), errors
+        B, N, C = STREAM_SHAPE
+        q, k, v = (torch.randn(B, N, C, generator=g, device=device).to(dtype)
+                   for _ in range(3))
+        print(f"[K2' tiled, two passes] {tag} B={B} N={N} C={C} tb={B}: "
+              f"{check_tiled(q, k, v, B, tag, results)}; "
+              f"{plan_str(B, N, C, dtype, tiled=True)}")
         B, N, C = TILED_SHAPE
         q, k, v = (torch.randn(B, N, C, generator=g, device=device).to(dtype)
                    for _ in range(3))
-        got = attention_tiled_cuda(q, k, v, TILED_TB)
-        torch.cuda.synchronize()
-        abs_e, rel_e = rel_err(got, attention_tiled_reference(q, k, v,
-                                                              TILED_TB))
-        results.record("attention_tiled", tag, abs_e, rel_e, TOL[tag])
+        err = check_tiled(q, k, v, TILED_TB, tag, results)
         km, pm = paired_ms(lambda: attention_tiled_cuda(q, k, v, TILED_TB),
                            lambda: attention_tiled_reference(q, k, v,
                                                              TILED_TB), reps)
         qf, kf, vf = (t.float() for t in (q, k, v))
         lm, backend = sdpa_ms(qf, kf, vf, reps)
         bnd = Bound()
-        # the function is f32 throughout, whatever the inputs' dtype
-        bnd.add(4 * B * N * N * C, 4 * B * N * C * e, PEAK["f32"])
-        print(f"[K2' tiled] {tag} B={B} N={N} C={C} tb={TILED_TB}: rel err "
-              f"{rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} "
-              f"ms, bound {bnd.ms:.4f} ms ({bnd.by}), "
-              f"F.scaled_dot_product_attention ({backend}) on the f32 upcast "
-              f"{lm:.4f} ms")
+        # f32: q k^T and PV in f32; bf16: q k^T and PV on w's hi and lo
+        # parts on the bf16 tensor cores
+        if dtype == torch.bfloat16:
+            bnd.add(*attention_work(B, N, C, e, products=3), PEAK["bf16"])
+        else:
+            bnd.add(*attention_work(B, N, C, e), PEAK["f32"])
+        at_least(f"K2' {tag}", km, bnd.ms)
+        dev = device_ms(f"K2' {tag}", lambda *a: attention_tiled_cuda(
+            *a, TILED_TB), (q, k, v), bnd.ms)
+        print(f"[K2' tiled] {tag} B={B} N={N} C={C} tb={TILED_TB}: {err}; "
+              f"{km:.4f} ms vs plain {pm:.4f} ms, bound {bnd.ms:.4f} ms "
+              f"({bnd.by}), F.scaled_dot_product_attention ({backend}) on "
+              f"the f32 upcast {lm:.4f} ms; "
+              f"{plan_str(B, N, C, dtype, tiled=True)}; device {dev:.4f} ms")
         results.time("attention_tiled", tag, km, pm, bnd, lm)
         del q, k, v, qf, kf, vf
+
 
 def timed(run):
     """(result, host seconds, launches) of ``run()``, counted from zero,
@@ -2017,6 +2203,117 @@ def hires_card_vs_cpu(device):
             raise AssertionError(f"hires card vs CPU {what}: {e:.3e} over "
                                  f"{TOL['slice']:.0e}")
 
+# phase 18: the InfoDiff of the datasets with unets_channels 32 (mnist,
+# fmnist and dsprites at 32px, chairs at 64px; config.py) as
+# with_dataset_config() builds it, a_dim 32 (the verify recipe's), T 1000:
+# its UNet and Encoder attend at C = 64, level 2 over N = 64 / 256 tokens
+# and the middle block over N = 16 / 64, all below the 512-token gate (K2)
+# and backward through K3b
+C64_DATASETS = ("mnist", "chairs")
+C64_A_DIM, C64_BATCH, C64_TRAIN_STEPS = 32, 64, 3
+
+
+def c64_cfg(dataset: str) -> Config:
+    return Config(model="diff", dataset=dataset, a_dim=C64_A_DIM,
+                  diffusion_steps=T, deterministic=True).with_dataset_config()
+
+
+def c64_paths(device, smi):
+    """Phase 18: per dataset, ``make_train_step`` (1 + 3 steps) and
+    DDIM-100 at B=64, bf16; then mnist's latent prior with turbo on the
+    per-forward route (it warns and samples unquantized through K5); exact
+    launches per kernel at C = 64. Returns each path's launch counts."""
+    bf16 = torch.bfloat16
+    by_path = {}
+    gen = torch.Generator(device=device)
+    fwd = ATTN_LVL + ATTN_MID  # K2 calls of one UNet or Encoder forward
+    s, B = C64_TRAIN_STEPS, C64_BATCH
+    for dataset in C64_DATASETS:
+        cfg = c64_cfg(dataset)
+        size, ch = cfg.input_size, cfg.input_channels
+        model = init_weights_(build_model(cfg, dtype=bf16, device=device), 80)
+        by_path[f"train_{dataset}"] = train_run(
+            size, B, s, device, smi, model=model.train(),
+            label=f"{dataset} {size}px", channels=ch, want={
+                "attention_c64": 2 * fwd * s,
+                "flash_attention_bwd_c64": 2 * fwd * s,
+                "attention": 0, "flash_attention_bwd": 0})
+        pipe = InfoDiffusionPipeline(cfg, model.eval())
+        a = torch.randn((B, cfg.a_dim), generator=gen.manual_seed(81),
+                        device=device)
+        pipe.generate(B, a=a, steps=2, generator=gen.manual_seed(82))
+        out, dt, n = timed(lambda: pipe.generate(
+            B, a=a, steps=DDIM_STEPS, generator=gen.manual_seed(83)))
+        if tuple(out.shape) != (B, size, size, ch):
+            raise AssertionError(f"{dataset}_ddim: images "
+                                 f"{tuple(out.shape)}")
+        path = f"{dataset}_ddim"
+        report(path, out, B, dt, n, smi)
+        expect(path, n, {"attention_c64": DDIM_STEPS * fwd, "attention": 0})
+        by_path[path] = n
+        del model, pipe, out
+        torch.cuda.empty_cache()
+    cfg = c64_cfg("mnist")
+    lat = init_weights_(build_model(cfg, latent=True, dtype=bf16,
+                                    device=device), 84).eval()
+    with env_set(K5_ROUTE), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        latent = LatentDiffusionProcess(cfg, lat, turbo="int8")
+    if not (latent.per_forward and any(
+            "int8 weight stream" in str(w.message) for w in caught)):
+        raise AssertionError("mnist latent turbo: the per-forward route "
+                             "did not take it with a warning")
+    out, dt, n = timed(lambda: latent.sampling(gen.manual_seed(85),
+                                               sampling_number=B))
+    path = "mnist_latent_turbo_fwd"
+    report(path, out, B, dt, n, smi, "latents")
+    expect(path, n, {"latent_mlp": T, "latent_traj": 0,
+                     "latent_traj_int8": 0})
+    by_path[path] = n
+    return by_path
+
+
+def c64_card_vs_cpu(device):
+    """Phase 18: the mnist InfoDiff's loss and every gradient leaf, f32,
+    B=2, the same weights and injected draws, card against CPU."""
+    n, cfg = 2, c64_cfg("mnist")
+    size, ch = cfg.input_size, cfg.input_channels
+    rng = np.random.RandomState(86)
+    x = torch.from_numpy(rng.randn(n, size, size, ch).astype(np.float32))
+    draws = dict(
+        t=torch.tensor([4, 733]),
+        eps=torch.from_numpy(rng.randn(n, size, size, ch).astype(np.float32)),
+        reparam_eps=torch.from_numpy(
+            rng.randn(n, cfg.a_dim).astype(np.float32)),
+        prior_samples=torch.from_numpy(
+            rng.randn(n, cfg.a_dim).astype(np.float32)))
+    outs = {}
+    for dev in (torch.device("cpu"), device):
+        model = init_weights_(build_model(cfg, dtype=torch.float32,
+                                          device=dev), 87, bias_std=0.1)
+        reset_launches()
+        loss, _, grads = loss_and_grads(
+            model, x.to(dev), 0, deterministic=True,
+            **{k: v.to(dev) for k, v in draws.items()})
+        outs[dev.type] = (loss.cpu(), {
+            k: g.cpu() for (k, _), g in zip(model.named_parameters(), grads)})
+        if dev.type == "cuda":
+            calls = 2 * (ATTN_LVL + ATTN_MID)  # the UNet and the Encoder
+            expect("mnist card", read_launches(), {
+                "attention_c64": calls, "flash_attention_bwd_c64": calls})
+        del model, grads
+    _, loss_e = rel_err(outs["cuda"][0], outs["cpu"][0])
+    errs = leaf_errors(outs["cuda"][1], outs["cpu"][1])
+    worst = max(errs, key=errs.get)
+    print(f"[mnist card vs CPU] f32 {size}px B={n}, injected draws: loss "
+          f"rel err {loss_e:.2e}; worst of {len(errs)} gradient leaves "
+          f"{errs[worst]:.2e} ({worst}) (bar {TOL['slice']:.0e} per leaf)")
+    if not max(loss_e, errs[worst]) <= TOL["slice"]:
+        raise AssertionError(f"mnist card vs CPU: {worst} "
+                             f"{max(loss_e, errs[worst]):.3e} over "
+                             f"{TOL['slice']:.0e}")
+
+
 class Results:
     """Per-kernel errors and times; a check over its bar raises at once."""
 
@@ -2032,6 +2329,7 @@ class Results:
         e[0], e[1] = max(e[0], abs_e), max(e[1], rel_e)
 
     def time(self, name, tag, ms, plain_ms, bound, library_ms=None):
+        at_least(f"{name} {tag}", ms, bound.ms)
         self.ms[(name, tag)] = (ms, plain_ms, bound, library_ms)
 
 
@@ -2110,7 +2408,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-17) to run after 1 "
+                        help="comma-separated phases (3-18) to run after 1 "
                              "and 2; default all, which also prints the "
                              "kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -2212,6 +2510,10 @@ def main() -> None:
         torch.cuda.empty_cache()
     if run(17):
         hires_card_vs_cpu(device)
+    if run(18):
+        by_path.update(c64_paths(device, smi))
+        torch.cuda.empty_cache()
+        c64_card_vs_cpu(device)
     run(None)  # the last phase's time
     if not only:
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))

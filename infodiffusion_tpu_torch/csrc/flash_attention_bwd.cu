@@ -1,5 +1,5 @@
-// K3b: flash-attention backward for q/k/v/do [B, N, C], C = 128, 256 or
-// 512, any N.
+// K3b: flash-attention backward for q/k/v/do [B, N, C], C = 64, 128, 256
+// or 512, any N.
 //
 // Replaces infodiffusion_tpu/ops/pallas/flash_attention.py (_bwd_kernel /
 // _bwd_call), the JAX package's one backward kernel (also the online
@@ -37,7 +37,10 @@
 // the logits (in bf16 (ii) dv and dk take separate passes, so a thread
 // holds one 16 x 128 accumulator, as at C = 128). Shared memory and
 // registers stay those of C = 128; the logit products are recomputed
-// C / 128 times over.
+// C / 128 times over. C = 64 (the InfoDiff UNet at ch 32: mnist, fmnist,
+// dsprites, chairs) takes C = 128's kernels with channels 64-127 of the
+// tiles zero, the products stopped at channel 64 where the operands
+// allow, and only 64 channels stored.
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -67,9 +70,9 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
   const size_t off = (size_t)b * N * C;
   const float *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
-  if (C == kC) {
-    load_tile(qs, qb, q0, N);
-    load_tile(dos, dob, q0, N);
+  if (C <= kC) {
+    load_chunk<C>(qs, qb, q0, N, 0);
+    load_chunk<C>(dos, dob, q0, N, 0);
   }
 
   float m[4], l[4];
@@ -104,8 +107,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int k0 = 0; k0 < N; k0 += kTile) {
       float s[4][4], dp[4][4];
       s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
-      // at C == kC ks still holds k's rows; else its slice oc comes here
-      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C == kC ? nullptr : ks, kb,
+      // at C <= kC ks still holds k's rows; else its slice oc comes here
+      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C <= kC ? nullptr : ks, kb,
                 oc);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -159,9 +162,9 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, j0 = blockIdx.x * kTile;
   const size_t off = (size_t)b * N * C;
   const float *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
-  if (C == kC) {
-    load_tile(ks, kb, j0, N);
-    load_tile(vs, vb, j0, N);
+  if (C <= kC) {
+    load_chunk<C>(ks, kb, j0, N, 0);
+    load_chunk<C>(vs, vb, j0, N, 0);
   }
 
   const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
@@ -198,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncthreads();
-      if (C != kC) {  // slice oc of the queries' q and do
+      if (C > kC) {  // slice oc of the queries' q and do
         load_chunk<C>(qs, qb, i0, N, oc);
         load_chunk<C>(dos, dob, i0, N, oc);
         __syncthreads();
@@ -271,9 +274,9 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane() / 4, t = lane() % 4;
   const size_t off = (size_t)b * N * C;
   const bf16 *qb = q + off, *kb = k + off, *vb = v + off, *dob = dout + off;
-  if (C == kC) {
-    load_tile(qs, qb, q0, N);
-    load_tile(dos, dob, q0, N);
+  if (C <= kC) {
+    load_chunk<C>(qs, qb, q0, N, 0);
+    load_chunk<C>(dos, dob, q0, N, 0);
   }
 
   float m[2], l[2];
@@ -308,8 +311,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int k0 = 0; k0 < N; k0 += kTile) {
       float s[8][4], dp[8][4];
       s_tile<C>(s, qs, ks, qb, q0, kb, k0, N);
-      // at C == kC ks still holds k's rows; else its slice oc comes here
-      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C == kC ? nullptr : ks, kb,
+      // at C <= kC ks still holds k's rows; else its slice oc comes here
+      s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C <= kC ? nullptr : ks, kb,
                 oc);
       unsigned p[4][4];
 #pragma unroll
@@ -329,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
           p[kk][2 * half] = pack(ds[0], ds[1]);
           p[kk][2 * half + 1] = pack(ds[2], ds[3]);
         }
-      mm_px(o, p, ks);
+      mm_px<width<C>()>(o, p, ks);
     }
     store_rows<C>(dq + off, o, q0, N, oc, one);
   }
@@ -345,7 +348,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// (ii) at C = 128: dk and dv together, 16 queries at a time
+// (ii) at C = 64 and 128: dk and dv together, 16 queries at a time
+template <int C>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_cols_mma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -363,9 +367,10 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, j0 = blockIdx.x * kTile;
   const int m0 = (threadIdx.x / 32) * 16;  // the warp's 16 keys
   const int g = lane() / 4, t = lane() % 4;
-  const size_t off = (size_t)b * N * kC;
-  load_tile(ks, k + off, j0, N);
-  load_tile(vs, v + off, j0, N);
+  constexpr int kW = width<C>();
+  const size_t off = (size_t)b * N * C;
+  load_chunk<C>(ks, k + off, j0, N, 0);
+  load_chunk<C>(vs, v + off, j0, N, 0);
 
   float dk_acc[16][4], dv_acc[16][4];
 #pragma unroll
@@ -374,8 +379,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   for (int i0 = 0; i0 < N; i0 += kTile) {
     __syncthreads();
-    load_tile(qs, q + off, i0, N);
-    load_tile(dos, dout + off, i0, N);
+    load_chunk<C>(qs, q + off, i0, N, 0);
+    load_chunk<C>(dos, dout + off, i0, N, 0);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       const bool valid = i0 + i < N;
       const float* src = rowstats + ((size_t)b * N + i0 + i) * 3;
@@ -394,7 +399,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kC / 16; ++kk) {
+      for (int kk = 0; kk < kW / 16; ++kk) {
         unsigned a[4], bq[4];
         load_a(a, ks, m0, kk * 16);
         load_b_nk(bq, qs, qc, kk * 16);
@@ -426,7 +431,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       // dv += w_c^T do and dk += ds_c^T q over these 16 queries
 #pragma unroll
-      for (int n2 = 0; n2 < 8; ++n2) {
+      for (int n2 = 0; n2 < kW / 16; ++n2) {
         unsigned bx[4];
         load_b_kn(bx, dos, qc, n2 * 16);
         mma(dv_acc[2 * n2], pw, bx[0], bx[1]);
@@ -444,8 +449,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = j0 + m0 + g + 8 * h;
     if (row >= N) continue;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const size_t i = (size_t)row * kC + n * 8 + 2 * t;
+    for (int n = 0; n < kW / 8; ++n) {
+      const size_t i = (size_t)row * C + n * 8 + 2 * t;
       *reinterpret_cast<__nv_bfloat162*>(dkb + i) =
           __floats2bfloat162_rn(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dvb + i) =
@@ -540,9 +545,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* rowstats, int B, int N,
            cudaStream_t stream) {
   auto rows = flash_bwd_rows_mma_kernel<C>;
-  auto cols = C == kC ? flash_bwd_cols_mma_kernel
-                      : flash_bwd_cols_chunked_mma_kernel<C>;
-  const size_t cols_smem = C == kC ? kColsSmem : kColsChunkedSmem;
+  decltype(&flash_bwd_cols_mma_kernel<kC>) cols;
+  size_t cols_smem;
+  if constexpr (C <= kC) {
+    cols = flash_bwd_cols_mma_kernel<C>;
+    cols_smem = kColsSmem;
+  } else {
+    cols = flash_bwd_cols_chunked_mma_kernel<C>;
+    cols_smem = kColsChunkedSmem;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowsSmem);
   if (err == cudaSuccess)
@@ -581,13 +592,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: [B, N, C] of `dtype`, contiguous, 16-byte
-// aligned, C in {128, 256, 512}; rowstats: [B, N, 3] f32 scratch.
+// aligned, C in {64, 128, 256, 512}; rowstats: [B, N, 3] f32 scratch.
 INFODIFF_EXPORT int infodiff_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* rowstats, int B, int N, int C, int dtype,
     cudaStream_t stream) {
   if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 64:
+      return dispatch<64>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
+                          stream);
     case 128:
       return dispatch<128>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
                            stream);

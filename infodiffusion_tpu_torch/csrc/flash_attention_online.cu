@@ -1,6 +1,6 @@
 // K3c: the online-softmax flash-attention forward
-// out = softmax(q k^T * C^-1/2) v for q/k/v/out [B, N, C], C = 128, 256 or
-// 512, any N.
+// out = softmax(q k^T * C^-1/2) v for q/k/v/out [B, N, C], C = 64, 128,
+// 256 or 512, any N.
 //
 // Replaces infodiffusion_tpu/ops/pallas/flash_attention.py
 // (_online_kernel / _online_fwd_call / flash_attention_online), the route
@@ -22,7 +22,8 @@
 // tiles hold 128-channel chunks as in K3a (flash_attention.cu): q k^T sums
 // over the chunks and each 128-channel slice of the output is a pass over
 // k of its own, which recomputes the logits and the identical running
-// statistics.
+// statistics. At C = 64 the tiles' channels 64-127 are zero and not
+// stored.
 //
 // bf16 runs the products on the tensor cores (mma.sync m16n8k16,
 // flash_mma.cuh): the running statistics of a row live in the four lanes
@@ -58,7 +59,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
   const size_t off = (size_t)b * N * C;
   const float *qb = q + off, *kb = k + off, *vb = v + off;
-  if (C == kC) load_tile(qs, qb, q0, N);
+  if (C <= kC) load_chunk<C>(qs, qb, q0, N, 0);
 
 #pragma unroll 1
   for (int oc = 0; oc < C; oc += kC) {
@@ -154,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y, q0 = blockIdx.x * kTile;
   const size_t off = (size_t)b * N * C;
   const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
-  if (C == kC) load_tile(qs, qb, q0, N);
+  if (C <= kC) load_chunk<C>(qs, qb, q0, N, 0);
 
 #pragma unroll 1
   for (int oc = 0; oc < C; oc += kC) {
@@ -206,7 +207,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < 16; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] *= corr[e / 2];
-      mm_px(o, p, vs);
+      mm_px<width<C>()>(o, p, vs);
     }
     store_rows<C>(out + off, o, q0, N, oc, l);
   }
@@ -240,7 +241,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q, k, v, out: [B, N, C] of `dtype`, contiguous, 16-byte aligned;
-// C in {128, 256, 512}.
+// C in {64, 128, 256, 512}.
 INFODIFF_EXPORT int infodiff_flash_attention_online(const void* q,
                                                     const void* k,
                                                     const void* v, void* out,
@@ -249,6 +250,8 @@ INFODIFF_EXPORT int infodiff_flash_attention_online(const void* q,
                                                     cudaStream_t stream) {
   if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
   switch (C) {
+    case 64:
+      return dispatch<64>(q, k, v, out, B, N, dtype, stream);
     case 128:
       return dispatch<128>(q, k, v, out, B, N, dtype, stream);
     case 256:

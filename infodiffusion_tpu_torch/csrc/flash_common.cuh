@@ -7,7 +7,8 @@
 // shared memory; every product is an f32 FMA. Rows are padded (132 and 68
 // floats) so that the 16-byte loads of a quarter warp fall in distinct
 // banks. At C = 256 and 512 the channels go through the tiles in
-// 128-wide chunks, as in flash_mma.cuh.
+// 128-wide chunks, and at C = 64 channels 64-127 of a tile are zero and
+// not stored, as in flash_mma.cuh.
 #pragma once
 
 #include <math.h>
@@ -29,24 +30,18 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
 }
 
 // rows [row0, row0 + 64) and channels [c0, c0 + 128) of src [N, C] into
-// dst [64][kLD]; rows at or beyond N are zero
+// dst [64][kLD]; rows at or beyond N and channels at or beyond C are zero
 template <int C>
 __device__ __forceinline__ void load_chunk(float* dst, const float* src,
                                            int row0, int N, int c0) {
   for (int i = threadIdx.x; i < kTile * kC / 4; i += kThreads) {
     const int r = i / (kC / 4), c = (i % (kC / 4)) * 4;
-    const float4 v = row0 + r < N
+    const float4 v = row0 + r < N && (C >= kC || c < C)
                          ? *reinterpret_cast<const float4*>(
                                src + (size_t)(row0 + r) * C + c0 + c)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * kLD + c) = v;
   }
-}
-
-// rows [row0, row0 + 64) of src [N, 128] into dst [64][kLD]
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int N) {
-  load_chunk<kC>(dst, src, row0, N, 0);
 }
 
 // The [64 x 64] layout of a thread's 4x4 block of S = A B^T: rows
@@ -83,7 +78,7 @@ __device__ __forceinline__ void mm_nt_acc(const float* A, const float* B,
 
 // s = A B^T for the 64 rows at a0 of A [N, C] against the 64 rows at b0 of
 // B [N, C], over all C channels, 128 at a time through the tiles `as` and
-// `bs`. When C == kC the caller has loaded A's rows into `as` once and
+// `bs`. When C <= kC the caller has loaded A's rows into `as` once and
 // only B's are loaded here. If `xs` is given, channels [xc0, xc0 + 128) of
 // X's rows b0 .. b0 + 63 land there with the first chunk. Starts with a
 // barrier, so the tiles may still be in use when it is called.
@@ -99,7 +94,7 @@ __device__ inline void s_tile(float (&s)[4][4], float* as, float* bs,
 #pragma unroll 1
   for (int c0 = 0; c0 < C; c0 += kC) {
     __syncthreads();
-    if (C != kC) load_chunk<C>(as, A, a0, N, c0);
+    if (C > kC) load_chunk<C>(as, A, a0, N, c0);
     load_chunk<C>(bs, B, b0, N, c0);
     if (xs != nullptr && c0 == 0) load_chunk<C>(xs, X, b0, N, xc0);
     __syncthreads();
@@ -157,7 +152,7 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // Running row max m and sum l of exp(s * scale - m) over all N keys for
 // the 64 rows at q0 of qb [N, C] (the thread's rows s_row(a)); qs holds
-// them when C == kC (else it is scratch), ks is scratch.
+// them when C <= kC (else it is scratch), ks is scratch.
 template <int C>
 __device__ inline void row_stats(float* qs, float* ks, const float* qb,
                                  int q0, const float* kb, int N, float scale,
@@ -190,11 +185,13 @@ __device__ inline void row_stats(float* qs, float* ks, const float* qb,
 }
 
 // a thread's rows o_row(r) of a 64 x 128 f32 accumulator, each divided by
-// div[r], to channels [c0, c0 + 128) of rows row0 + o_row(r) of dst [N, C]
+// div[r], to channels [c0, c0 + 128) (at C = 64: [0, 64)) of rows
+// row0 + o_row(r) of dst [N, C]
 template <int C>
 __device__ __forceinline__ void store_rows(float* dst, const float (&o)[8][4],
                                            int row0, int N, int c0,
                                            const float (&div)[8]) {
+  if (C < kC && o_col() >= C) return;
 #pragma unroll
   for (int r = 0; r < 8; ++r)
     if (row0 + o_row(r) < N) {
@@ -202,6 +199,54 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&o)[8][4],
                           o[r][2] / div[r], o[r][3] / div[r]};
       store4(dst + (size_t)(row0 + o_row(r)) * C + c0 + o_col(), v);
     }
+}
+
+constexpr size_t kTwoPassSmem = (3 * kTileFloats + kPFloats) * sizeof(float);
+
+// The two-pass forward for the 64 query rows at q0 of qb/kb/vb/ob [N, C]
+// in f32 (K3a's body, and K2's beyond its resident strip): pass 1 keeps
+// each row's running max and sum, pass 2 recomputes the logits, forms
+// w = exp(s - max) / sum and accumulates w v per 128-channel output slice.
+// smem: kTwoPassSmem bytes.
+template <int C>
+__device__ inline void forward_two_pass(float* smem, const float* qb,
+                                        const float* kb, const float* vb,
+                                        float* ob, int q0, int N,
+                                        float scale) {
+  float* qs = smem;              // [64][kLD]
+  float* ks = qs + kTileFloats;  // [64][kLD]
+  float* vs = ks + kTileFloats;  // [64][kLD]
+  float* ps = vs + kTileFloats;  // [64][kLDP]: weights
+  if (C <= kC) load_chunk<C>(qs, qb, q0, N, 0);
+
+  float m[4], l[4];
+  row_stats<C>(qs, ks, qb, q0, kb, N, scale, m, l);
+
+  const float one[8] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll 1
+  for (int oc = 0; oc < C; oc += kC) {
+    float o[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
+    for (int k0 = 0; k0 < N; k0 += kTile) {
+      float s[4][4];
+      s_tile<C>(s, qs, ks, qb, q0, kb, k0, N, vs, vb, oc);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const float w = k0 + s_col(bb) < N
+                              ? expf(s[a][bb] * scale - m[a]) / l[a]
+                              : 0.f;
+          ps[s_row(a) * kLDP + s_col(bb)] = w;
+        }
+      __syncthreads();
+      mm_nn_acc(ps, vs, o);
+    }
+    store_rows<C>(ob, o, q0, N, oc, one);
+  }
 }
 
 }  // namespace flash

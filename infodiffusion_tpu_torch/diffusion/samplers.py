@@ -33,6 +33,7 @@ explicit ``torch.Generator`` on the device, or are injected with
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -363,6 +364,14 @@ class TwoPhaseDiffusionProcess:
             self.sched, x0, a)
 
 
+# the JAX process's warning where the trajectory kernel is not taken
+_LATENT_TURBO_OFF = (
+    "--turbo requested for the latent sampler but the whole-trajectory "
+    "kernel is not active (mesh path, non-TPU backend, INFODIFF_DISABLE_* "
+    "set, or unsupported a_dim) — the latent leg runs bf16; only the "
+    "trajectory kernel carries the int8 weight stream")
+
+
 class LatentDiffusionProcess:
     """The latent prior's sampler. ``model`` is a port
     ``Diff(is_latent=True)``; its weights are packed once, here, in the
@@ -373,7 +382,8 @@ class LatentDiffusionProcess:
     ``INFODIFF_ENABLE_FUSED_LATENT=1``) the per-forward route outranks K4,
     as in the JAX package: ``sample_loop`` and ``reverse_sample_loop`` over
     ``latent_eps_fn``, one K5 launch per step; the int8 stream is K4's
-    only, so a turbo mode there raises."""
+    only, so a turbo mode there warns, as the JAX process does, and samples
+    with the unquantized packed weights."""
 
     def __init__(self, cfg, model: torch.nn.Module,
                  turbo: Optional[str] = None):
@@ -388,9 +398,9 @@ class LatentDiffusionProcess:
             and fused_latent_supported(model.backbone, cfg.a_dim))
         self.params = pack_latent_unet_params(model.backbone, cfg.a_dim,
                                               dtype=model.dtype)
-        if self.turbo:
-            if self.per_forward:
-                _no_turbo(self.turbo, "the per-forward latent route (K5)")
+        if self.turbo and self.per_forward:
+            warnings.warn(_LATENT_TURBO_OFF)
+        elif self.turbo:
             self.params = quantize_packed_weights(self.params)
 
     @torch.no_grad()

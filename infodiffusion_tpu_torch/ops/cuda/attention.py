@@ -11,30 +11,38 @@ before PV, PV accumulated in f32, the output in v's dtype. The Pallas
 kernel keeps the weights in f32; the two agree in f32 and differ by the
 rounding of w in bf16.
 
-On the card the kernel is bound by instruction issue at the models' N =
-256 and N = 64: it does its products as plain f32 FMAs and computes q k^T
-twice, once for the row max and sum and once for the weights, so that w
-can be rounded exactly as the contract says. A block owns 16 query rows
-and walks k/v in 32-row tiles through shared memory, so it takes any N.
-It is compiled for C = 128 (the InfoDiff UNet), 256 and 512 (the vanilla
-UNet and the VAE, ch_mult (1, 2, 4, 8)); any other C raises.
+As the TPU kernel does, a block holds the f32 logit strip of its query rows
+on chip: q k^T is computed once, the softmax finished, w rounded, and only
+then PV. In bf16 every product runs on the tensor cores (``mma.sync``, f32
+accumulation); a block of BQ / 16 warps owns BQ = 16, 32 or 64 query rows
+of one batch element (fewer at small N and small grids) and streams its k
+and v once each. Where the strip would leave an SM fewer than 4 warps (N
+beyond 768 at BQ = 64, 512 at BQ = 16) the block makes K3a's two passes
+over k instead. f32 makes K3a's two passes with exact f32 FMAs.
+``attention_plan`` says what a shape launches. It is compiled for C = 64
+(the InfoDiff UNet at ch 32: mnist, fmnist, dsprites, chairs), 128 (ch 64),
+256 and 512 (the vanilla UNet and the VAE, ch_mult (1, 2, 4, 8)); any other
+C raises.
 
 K2' replaces ``tools/microbench_attention.py`` (``attention_pallas_tiled``
 / ``_tiled_kernel``), the attention microbenchmark's variant with ``tb``
 batch elements per grid step: q, k, v upcast to f32, f32 logits and
 softmax, PV with w unrounded in f32, the output in v's dtype. In f32 it is
-K2's function; in bf16 it differs from K2 by the rounding of w. Its kernel
-is K2's, instantiated without that rounding, a block walking the same
-query rows of ``tb`` batch elements (``csrc/attention.cu``).
+K2's function; in bf16 it differs from K2 by the rounding of w. Its
+kernels are K2's with w split into hi = bf16(w) and lo = bf16(w - hi), PV
+run on both (about 2^-17 relative to w); ``tb`` does not change the
+function and is checked, not looped over.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
 
-CHANNELS = (128, 256, 512)  # the C the kernel is compiled for
+CHANNELS = (64, 128, 256, 512)  # the C the kernel is compiled for
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -80,6 +88,22 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 attention_cuda.launches = 0
 attention_cuda.launches_by_c = dict.fromkeys(CHANNELS, 0)  # per C
+
+
+def attention_plan(B: int, N: int, C: int, dtype: torch.dtype,
+                   tiled: bool = False) -> dict:
+    """What K2 (K2' with ``tiled``) launches for [B, N, C] of ``dtype`` on
+    the current card: query rows a block (``bq``), ``blocks``,
+    ``threads``, ``smem`` bytes, ``strip`` (the one-pass resident strip,
+    else two passes over k) and ``per_sm`` (resident blocks per SM)."""
+    info = (ctypes.c_int * 6)()
+    err = _lib.library().lib.infodiff_attention_plan(
+        B, N, C, _lib.DTYPE_CODES[dtype], int(tiled), info)
+    _lib.check_launch(err, "attention_plan")
+    keys = ("bq", "blocks", "threads", "smem", "strip", "per_sm")
+    plan = dict(zip(keys, info))
+    plan["strip"] = bool(plan["strip"])
+    return plan
 
 
 def attention_tiled_reference(q: torch.Tensor, k: torch.Tensor,

@@ -6,8 +6,10 @@ primary forward (``_kernel`` / ``_fwd_call``), kernel
 ``csrc/flash_attention.cu``; K3b the backward (``_bwd_kernel`` /
 ``_bwd_call``), kernel ``csrc/flash_attention_bwd.cu``; K3c the online
 forward (``_online_kernel`` / ``flash_attention_online``), kernel
-``csrc/flash_attention_online.cu``. Each takes C = 128, 256 or 512 and any
-N, and counts its launches in total and per C (``launches_by_c``).
+``csrc/flash_attention_online.cu``. Each takes C = 64, 128, 256 or 512
+and any N, and counts its launches in total and per C (``launches_by_c``).
+At C = 64 the kernels' 128-channel tiles hold zeros in channels 64-127
+and store only the first 64: the function is exactly that of C = 64.
 
 Forward contract of K3a (``_kernel``, the same as K2's): f32 logits times
 C^-1/2, f32 softmax, the weights rounded to v's dtype before PV, f32
@@ -58,7 +60,7 @@ from infodiffusion_tpu_torch.ops.cuda.attention import (
     attention_reference,
 )
 
-CHANNELS = (128, 256, 512)  # the C the flash kernels are compiled for
+CHANNELS = (64, 128, 256, 512)  # the C the flash kernels are compiled for
 
 # the JAX package's plan arithmetic (flash_attention.py), in bytes
 _LOGITS_BUDGET = 4 * 1024 * 1024

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "infodiff_latent_traj": [_P] * 10 + [_I] * 6 + [_P],
     "infodiff_adagn_bwd": [_P] * 13 + [_I] * 10 + [_P],
     "infodiff_attention_tiled": [_P] * 4 + [_I] * 5 + [_P],
+    "infodiff_attention_plan": [_I] * 5 + [_P],
     "infodiff_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
     "infodiff_flash_attention_online": [_P] * 4 + [_I] * 4 + [_P],
     "infodiff_flash_attention_bwd": [_P] * 8 + [_I] * 4 + [_P],

@@ -4,10 +4,10 @@ K2' (port of ``tools/microbench_attention.py``).
 
 Variants:
 - plain:    ``attention_reference`` (the JAX package's XLA path, in torch)
-- k2:       ``attention_cuda``, one block per 16 query rows of one batch
-            element, w rounded to v's dtype
-- k2_tiled: ``attention_tiled_cuda``, tb=8 batch elements per block, all
-            f32 (the JAX tool's ``attention_pallas_tiled``)
+- k2:       ``attention_cuda``, one pass over k on the tensor cores with
+            the logit strip on chip, w rounded to v's dtype
+- k2_tiled: ``attention_tiled_cuda``, w unrounded (all f32, the JAX tool's
+            ``attention_pallas_tiled``; tb=8 must divide the batch)
 
     python -m infodiffusion_tpu_torch.tools.microbench_attention [--reps N]
 

@@ -42,10 +42,11 @@ def _tiled_pallas(q, k, v, tb):
     )(q, k, v)
 
 
+@pytest.mark.parametrize("C", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiled_plain_matches_pallas(dtype):
-    rng = np.random.RandomState(80)
-    q, k, v = (rng.randn(16, 64, 128).astype(np.float32) for _ in range(3))
+def test_tiled_plain_matches_pallas(dtype, C):
+    rng = np.random.RandomState(80 + C)
+    q, k, v = (rng.randn(16, 64, C).astype(np.float32) for _ in range(3))
     jdt, pdt = jnp.dtype(dtype), getattr(torch, dtype)
     want = _tiled_pallas(*(jnp.asarray(t, jdt) for t in (q, k, v)), tb=8)
     got = attention_tiled_reference(*(tensor(t).to(pdt) for t in (q, k, v)),

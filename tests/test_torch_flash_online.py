@@ -147,6 +147,28 @@ def test_route_gate_matches_jax(monkeypatch):
             for n in (512, 8192, 16384)} == {"attention"}
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_route_at_c64_matches_jax(dtype, monkeypatch):
+    """C = 64 (the InfoDiff at ch 32) takes the route the JAX planner
+    gives it: K2 at the mnist and chairs sites, then K3a or K3c."""
+    monkeypatch.setattr(jfa.jax, "default_backend", lambda: "tpu")
+    pdt, jdt = DTYPES[dtype]
+    for env in ({}, {"INFODIFF_FLASH_ATTN_MIN_TOKENS": "64"},
+                {"INFODIFF_DISABLE_FLASH_ATTENTION": "1"}):
+        monkeypatch.delenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", raising=False)
+        monkeypatch.delenv("INFODIFF_DISABLE_FLASH_ATTENTION", raising=False)
+        for key, value in env.items():
+            monkeypatch.setenv(key, value)
+        for n in (16, 64, 256, 1024, 4096, 16384, 32768, 65536):
+            want = (_jax_plan(n, 64, jdt) if jfa.flash_enabled(n)
+                    else "attention")
+            assert pfa.flash_route(n, 64, pdt) == want, (env, n)
+    monkeypatch.delenv("INFODIFF_DISABLE_FLASH_ATTENTION")
+    monkeypatch.delenv("INFODIFF_FLASH_ATTN_MIN_TOKENS", raising=False)
+    assert {pfa.flash_route(n, 64, pdt) for n in (16, 64, 256)} == {
+        "attention"}
+
+
 def _force_online(monkeypatch, min_tokens=64):
     """The port's route as JAX's test forces it: the primary plan can hold
     nothing, so every N from ``min_tokens`` whose online tiles divide it

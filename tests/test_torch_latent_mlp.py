@@ -116,6 +116,44 @@ def test_per_forward_reverse_matches_jax(models, monkeypatch):
                  "K4 reverse")
 
 
+def test_per_forward_turbo_warns_and_samples_as_jax(models, monkeypatch):
+    """turbo='int8' on the per-forward route: the port warns and samples
+    bitwise as without turbo; the JAX process, whose per-forward and
+    trajectory kernels are off on the CPU, warns and samples with the
+    model's own forward (XLA), here with the same injected draws."""
+    from infodiffusion_tpu.config import Config as JConfig
+    from infodiffusion_tpu.diffusion.samplers import (
+        LatentDiffusionProcess as JLatentProcess,
+    )
+
+    params, pm = models
+    rng = np.random.RandomState(25)
+    xT = rng.randn(B, D).astype(np.float32)
+    noises = rng.randn(T, B, D).astype(np.float32)
+    monkeypatch.setenv("INFODIFF_ENABLE_FUSED_LATENT", "1")
+    monkeypatch.setenv(FORCE, "1")
+    monkeypatch.delenv("INFODIFF_DISABLE_PALLAS", raising=False)
+    cfg = Config(a_dim=D, diffusion_steps=T, deterministic=True)
+    with pytest.warns(UserWarning, match="int8 weight stream"):
+        turbo = LatentDiffusionProcess(cfg, pm, turbo="int8")
+    plain = LatentDiffusionProcess(cfg, pm, turbo="off")
+    assert turbo.per_forward and plain.per_forward
+    got = turbo.sampling(xT=tensor(xT), noises=tensor(noises))
+    assert torch.equal(got, plain.sampling(xT=tensor(xT),
+                                           noises=tensor(noises)))
+    jm = JDiff(T=T, shape=(1, D, D), is_latent=True)
+    with pytest.warns(UserWarning, match="int8 weight stream"):
+        jproc = JLatentProcess(JConfig(a_dim=D, diffusion_steps=T,
+                                       deterministic=True), jm,
+                               {"params": params}, turbo="int8")
+    assert not (jproc._fused or jproc._traj)
+    # the JAX process's sampling function with the same injected draws
+    want = sample_loop(jproc._eps_fn(jproc.params), jproc.sched,
+                       jnp.asarray(xT), None, deterministic=True,
+                       noises=jnp.asarray(noises))
+    assert_close(got, want, TRAJECTORY_TOL, "per-forward turbo sampling")
+
+
 def test_gate(models, monkeypatch):
     params, pm = models
     assert K5.fused_latent_supported(pm.backbone, D)
@@ -135,10 +173,12 @@ def test_gate(models, monkeypatch):
     assert not K5.use_fused_latent(x)  # a CPU tensor: K4's route
     monkeypatch.setenv(FORCE, "1")
     assert K5.use_fused_latent(x)
-    # the int8 stream is K4's: the per-forward route refuses a turbo mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LatentDiffusionProcess(Config(a_dim=D, diffusion_steps=T), pm,
-                               turbo="int8")
+    # the int8 stream is K4's: the per-forward route warns, as JAX does,
+    # and keeps the unquantized packed weights
+    with pytest.warns(UserWarning, match="int8 weight stream"):
+        proc = LatentDiffusionProcess(Config(a_dim=D, diffusion_steps=T), pm,
+                                      turbo="int8")
+    assert proc.per_forward and proc.params["W"].dtype == torch.float32
     monkeypatch.setenv("INFODIFF_DISABLE_PALLAS", "1")
     assert not K5.use_fused_latent(x)
     with pytest.raises(ValueError, match="CUDA"):

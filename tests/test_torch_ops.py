@@ -214,15 +214,16 @@ def test_adagn_reference_matches_jax(C, K):
                  OP_TOL, "vs Pallas (interpret)")
 
 
+@pytest.mark.parametrize("C", [64, 128])
 @pytest.mark.parametrize("N", [16, 64])
-def test_attention_reference_matches_jax(N):
+def test_attention_reference_matches_jax(N, C):
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
 
     from infodiffusion_tpu.ops.pallas import attention as jatt
 
-    rng = np.random.RandomState(N)
-    B, C = 2, 128
+    rng = np.random.RandomState(N + C)
+    B = 2
     q, k, v = (rng.randn(B, N, C).astype(np.float32) for _ in range(3))
     got = attention_reference(tensor(q), tensor(k), tensor(v))
     assert_close(got, _attention_xla(q, k, v), OP_TOL, "vs XLA")
