@@ -27,15 +27,19 @@ on the card. Phases, each printing one line or a few, any failure raising:
    against the plain versions on the CPU.
 6. training kernels: the K1 backward at every GroupNorm site of one
    training forward (backbone and Encoder; 64px at B=128 and 128px at
-   B=64), K3a (flash forward) at N=1024 B=64 and K3b (flash backward) at
-   N=1024 B=64, N=256 B=128 and N=64 B=128, each against its plain
-   version in f32 and bf16, with errors and CUDA-event times of both.
+   B=64), K3a (flash forward) at N=1024 B=64 (in bf16 with its launch
+   plan and device time against SDPA's) and K3b (flash backward) at
+   N=1024 B=64, N=256 B=128 and N=64 B=128 on both contracts (the Pallas
+   backward's and the dense attention's autodiff, the main path's first),
+   each against its plain version in f32 and bf16, with errors and
+   CUDA-event times of both.
 7. the training slice, bf16, dropout on, random weights from a numpy
    seed: ``create_train_state`` and ``make_train_step`` on the flagship
    InfoDiff (AuxiliaryUNet + Encoder, mmd 0.1, epochs 50) at 64px B=128
    (1 warm-up step, 5 timed) and at 128px B=64 (1 + 3): imgs/s, loss,
    grad norm, peak memory; checks a finite loss, that every parameter in
-   the loss has a non-zero gradient and moved, and the launch counts.
+   the loss has a non-zero gradient and moved, and the launch counts (K3b
+   exactly, per contract).
 8. card against CPU, training: f32, 128px, B=2, the same weights and
    injected draws, ``deterministic=True``: the loss and every gradient
    leaf, then every parameter after one optimizer step on each device
@@ -84,9 +88,12 @@ on the card. Phases, each printing one line or a few, any failure raising:
    of its flash, memory-efficient and math backends that takes the shape):
    K3c (online forward) at [8,16384,128] (the InfoDiff at 512px),
    [2,16384,256] and [8,4096,512] (the vanilla UNet at 512px) and
-   [2,4096,64]; K3a at [8,4096,128] (the 512px middle block),
-   [32,1024,256], [16,1024,512] and [8,1024,64]; K3b at [64,256,256],
-   [64,64,512], [4,16384,128], [4,4096,128], [64,256,64] and [64,64,64];
+   [2,4096,64] (bf16: at the kernel's k tile and at JAX's); K3a at
+   [8,4096,128] (the 512px middle block), [32,1024,256], [16,1024,512] and
+   [8,1024,64], each bf16 shape with its launch plan (flash_launch_plan)
+   and its device time against SDPA's; K3b on both contracts at
+   [64,256,256], [64,64,512], [4,16384,128], [4,4096,128], [64,256,64] and
+   [64,64,64];
    K2 and K2' at [2,4096,128], beyond the resident strip (two passes); K2'
    (all f32) at [128,256,128] tb=8, its bf16 bound at the bf16 peak with
    its three products (q k^T, PV on w's hi and lo parts); then K1 (B=8 and 4), its backward (B=4)
@@ -96,7 +103,8 @@ on the card. Phases, each printing one line or a few, any failure raising:
    B=8; make_train_step B=4, 1 + 2 steps), the vanilla Diff and the VAE
    training at 64px (B=64, 1 + 3), the vanilla UNet's DDIM-2 at 256px and
    512px (K3a and K3c at C=256/512), and both attention tools at reduced
-   reps: rates, peak memory, exact launch counts per kernel and C.
+   reps: rates, peak memory, exact launch counts per kernel and C (and
+   K3b's per contract).
 17. card against CPU, f32: the 64px InfoDiff DDIM-10 at B=2 with the
    online route forced (the port's plan limit set in-process), one 512px
    InfoDiff forward at B=1 on the real route, the vanilla Diff's and the
@@ -127,6 +135,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -176,11 +185,14 @@ from infodiffusion_tpu_torch.ops.cuda.attention import (
     attention_tiled_reference,
 )
 from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
+    attention_dense_bwd_reference,
+    bwd_route,
     flash_attention_bwd_cuda,
     flash_attention_bwd_reference,
     flash_attention_cuda,
     flash_attention_online_cuda,
     flash_attention_online_reference,
+    flash_launch_plan,
 )
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
 from infodiffusion_tpu_torch.ops.cuda.library import library
@@ -337,17 +349,33 @@ KERNELS.update({
 })
 
 
+# K3b's plain version per contract (ops/cuda/flash_attention.py bwd_route:
+# 'flash' where JAX runs its Pallas backward, else 'dense')
+BWD_PLAIN = {"flash": flash_attention_bwd_reference,
+             "dense": attention_dense_bwd_reference}
+
+
+def contract_key(contract: str) -> str:
+    """The launch count of K3b on one contract, beside the kernels'."""
+    return f"flash_attention_bwd.{contract}"
+
+
 def reset_launches():
     for spec in KERNELS.values():
         fn = spec["fn"]
         fn.launches = 0
         if hasattr(fn, "launches_by_c"):
             fn.launches_by_c.update(dict.fromkeys(fn.launches_by_c, 0))
+    by_contract = flash_attention_bwd_cuda.launches_by_contract
+    by_contract.update(dict.fromkeys(by_contract, 0))
 
 
 def read_launches():
-    return {name: spec["count"]() if "count" in spec else spec["fn"].launches
-            for name, spec in KERNELS.items()}
+    counts = {name: spec["count"]() if "count" in spec else spec["fn"].launches
+              for name, spec in KERNELS.items()}
+    for contract, n in flash_attention_bwd_cuda.launches_by_contract.items():
+        counts[contract_key(contract)] = n
+    return counts
 
 
 class Bound:
@@ -518,6 +546,57 @@ def check_tiled(q, k, v, tb, tag, results) -> str:
         line += (f"; mean abs error against w unrounded {mine:.2e}, K2's "
                  f"{k2s:.2e}")
     return line
+
+
+def flash_plan_str(B, N, C) -> str:
+    """The bf16 launch of K3a and K3c at [B, N, C] (flash_launch_plan)."""
+    p = flash_launch_plan(B, N, C, torch.bfloat16)
+    return (f"{p['blocks']} blocks x {p['threads']} threads, BQ {p['bq']} on "
+            f"{p['warpgroups']} consumer warpgroups, BK {p['bk']}, "
+            f"{p['stages']} stages, {p['smem'] / 1024:.1f} KB")
+
+
+def flash_device_str(label, kernel, q, k, v, bound_ms, event_ratio) -> str:
+    """Device ms of a bf16 K3a / K3c call and of SDPA on the same inputs,
+    each held to the bound, and the ratios to SDPA (device, events)."""
+    B, N, C = q.shape
+    shape = f"[{B},{N},{C}]"
+    dev = device_ms(f"{label} {shape}", kernel, (q, k, v), bound_ms)
+    sdpa = device_ms(f"SDPA {shape}", F.scaled_dot_product_attention,
+                     tuple(t.unsqueeze(1) for t in (q, k, v)), bound_ms)
+    return (f"device {dev:.4f} ms against SDPA's {sdpa:.4f} ms ({dev / sdpa:.2f}"
+            f"x SDPA; events {event_ratio:.2f}x)")
+
+
+def check_bwd_contracts(label, name, tag, q, k, v, do, reps, results,
+                        plain_reps=None):
+    """K3b on both contracts against their plain versions, the main path's
+    (bwd_route) first; returns (kernel ms, plain ms) of the main path's
+    contract and the line's text."""
+    B, N, C = q.shape
+    route = bwd_route(N, C, q.dtype)
+    parts, main = [], None
+    for contract in (route, *(c for c in BWD_PLAIN if c != route)):
+        plain = BWD_PLAIN[contract]
+        got = flash_attention_bwd_cuda(q, k, v, do, contract=contract)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, do)
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            abs_e, rel_e = rel_err(a, b)
+            results.record(name, f"{tag} {contract} {what}", abs_e, rel_e,
+                           TOL[tag])
+            errs.append(f"{what} {rel_e:.2e}")
+        del got, want
+        km, pm = paired_ms(
+            lambda: flash_attention_bwd_cuda(q, k, v, do, contract=contract),
+            lambda: plain(q, k, v, do), reps, plain_reps)
+        main = main or (km, pm)
+        parts.append(f"{contract}{' (main path)' if contract == route else ''}"
+                     f": rel err {', '.join(errs)}; {km:.4f} ms vs plain "
+                     f"{pm:.4f} ms")
+    return main[0], main[1], f"[{label}] {tag} B={B} N={N} C={C}: " + "; ".join(
+        parts)
 
 
 def plan_str(B, N, C, dtype, tiled=False) -> str:
@@ -858,35 +937,30 @@ def check_flash(device, reps, results):
         lib_ms = sdpa_ms(q, k, v, reps)[0]
         results.time("flash_attention", tag, km, pm, bnd, lib_ms)
         gflop = 4 * B * N * N * 128 / 1e9
+        dev = (f"; {flash_plan_str(B, N, 128)}; " + flash_device_str(
+            "K3a", flash_attention_cuda, q, k, v, bnd.ms, km / lib_ms)
+            if dtype == torch.bfloat16 else "")
         print(f"[K3a flash fwd] {tag} B={B} N={N} C=128: rel err {rel_e:.2e} "
               f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms "
               f"({gflop / km:.1f} TFLOP/s counting 4BN^2C), bound "
               f"{bnd.ms:.4f} ms ({bnd.by}), F.scaled_dot_product_attention "
-              f"{lib_ms:.4f} ms")
+              f"{lib_ms:.4f} ms{dev}")
         ms = plain_ms = lib_ms = 0.0
         bnd = Bound()
+        # the 128px level 2 (flash contract) and the 64px sites (dense)
         for B, N in ((64, 1024), (128, 256), (128, 64)):
             q, k, v, do = (torch.randn(B, N, 128, generator=g, device=device)
                            .to(dtype) for _ in range(4))
             # recompute s, then dv, dp, dq, dk: 10 B N^2 C
             bnd.add(10 * B * N * N * 128, 7 * B * N * 128 * e, PEAK[tag])
             lib_ms += sdpa_ms(q, k, v, reps, do)[0]
-            got = flash_attention_bwd_cuda(q, k, v, do)
-            torch.cuda.synchronize()
-            want = flash_attention_bwd_reference(q, k, v, do)
-            errs = []
-            for what, a, b in zip(("dq", "dk", "dv"), got, want):
-                abs_e, rel_e = rel_err(a, b)
-                results.record("flash_attention_bwd", f"{tag} {what}", abs_e,
-                               rel_e, TOL[tag])
-                errs.append(f"{what} {rel_e:.2e}")
-            km, pm = paired_ms(
-                lambda: flash_attention_bwd_cuda(q, k, v, do),
-                lambda: flash_attention_bwd_reference(q, k, v, do), reps)
+            km, pm, line = check_bwd_contracts(
+                "K3b flash bwd", "flash_attention_bwd", tag, q, k, v, do, reps,
+                results)
             ms, plain_ms = ms + km, plain_ms + pm
-            print(f"[K3b flash bwd] {tag} B={B} N={N} C=128: rel err "
-                  f"{', '.join(errs)}; {km:.4f} ms vs plain {pm:.4f} ms")
-        print(f"[K3b flash bwd] {tag}: the three shapes once each {ms:.4f} "
+            print(line)
+        print(f"[K3b flash bwd] {tag}: the three shapes once each, the main "
+              f"path's contract, {ms:.4f} "
               f"ms, plain {plain_ms:.4f}, bound {bnd.ms:.4f} ({bnd.by}), "
               f"F.scaled_dot_product_attention backward {lib_ms:.4f}")
         results.time("flash_attention_bwd", tag, ms, plain_ms, bnd, lib_ms)
@@ -915,14 +989,16 @@ def leaf_errors(got: dict, want: dict):
 
 
 def train_run(size, batch, steps, device, smi, model=None, label=None,
-              want=None, no_grad=NO_GRAD_PARAMS, profile=False, channels=3):
+              want=None, no_grad=NO_GRAD_PARAMS, profile=False, channels=3,
+              contracts=None):
     """Drive ``make_train_step`` on ``model`` (default: the flagship
     InfoDiff for ``size``-pixel images of ``channels`` channels), 1
     warm-up step and ``steps`` timed;
     checks a finite loss, that every parameter but ``no_grad`` has a
     non-zero gradient and moved, and the launch counts of the timed steps
-    (exactly ``want`` where given), which it returns; with ``profile``,
-    then the device's share of one more step."""
+    (exactly ``want`` where given; K3b's per contract exactly
+    ``contracts``), which it returns; with ``profile``, then the device's
+    share of one more step."""
     if model is None:
         model = train_model(torch.bfloat16, device, size)
     label = label or f"{size}px"
@@ -967,6 +1043,9 @@ def train_run(size, batch, steps, device, smi, model=None, label=None,
             raise AssertionError(f"{label}: kernels not launched: {idle}")
     else:
         expect(f"train {label}", launches, want)
+    if contracts is not None:
+        expect(f"train {label}, K3b per contract", launches,
+               {contract_key(c): n for c, n in contracts.items()})
     moved_n = {k: v for k, v in launches.items() if v}
     print(f"[train bf16] {label} B={batch}: {steps} steps {dt:.3f} s = "
           f"{batch * steps / dt:.2f} imgs/s (host clock, synchronised; "
@@ -1028,6 +1107,17 @@ def train_card_vs_cpu(device):
     if not worst <= TOL["slice"]:
         raise AssertionError(f"train card vs CPU: {worst:.3e} over "
                              f"{TOL['slice']:.0e}")
+
+def train_contracts(size, steps):
+    """K3b's launches per contract in ``steps`` training steps of the
+    flagship InfoDiff (UNet and Encoder, each 5 level-2 and 1 middle-block
+    attention): at 64px every site is below the flash gate (dense); at
+    128px level 2 (N = 1024) takes the flash contract, the middle block
+    (N = 256) the dense."""
+    calls = 2 * (ATTN_LVL + ATTN_MID) * steps
+    flash = 2 * ATTN_LVL * steps if size == 128 else 0
+    return {"flash": flash, "dense": calls - flash}
+
 
 # ------------------------------------------------------- the int8 tier
 
@@ -1667,6 +1757,7 @@ def check_flash_wide(device, reps, results):
          attention_reference, STREAM_SHAPE)]
     # the C=128 lines keep phase 3's (K2) and phase 6's (K3a, K3b) times
     keep = {"attention", "flash_attention", "flash_attention_bwd"}
+    bf16 = torch.bfloat16
     for tag, dtype in DTYPES.items():
         e = torch.finfo(dtype).bits // 8
         timing = {}  # name -> [ms, plain ms, Bound, library ms], summed
@@ -1682,6 +1773,16 @@ def check_flash_wide(device, reps, results):
                        .to(dtype) for _ in range(3))
             got = kernel(q, k, v)
             torch.cuda.synchronize()
+            jax_tiles = ""
+            if kernel is flash_attention_online_cuda and dtype == bf16:
+                # held at the kernel's own k tile; against JAX's tiles at
+                # the same bar, where p's rounding differs
+                bk = flash_launch_plan(B, N, C, dtype)["bk"]
+                abs_e, rel_e = rel_err(got, plain(q, k, v))
+                results.record(name, f"{tag} JAX's tiles", abs_e, rel_e,
+                               TOL[tag])
+                jax_tiles = f"; against JAX's k tiles {rel_e:.2e}"
+                plain = functools.partial(plain, block_k=bk)
             abs_e, rel_e = rel_err(got, plain(q, k, v))
             results.record(name, tag, abs_e, rel_e, TOL[tag])
             del got
@@ -1693,10 +1794,14 @@ def check_flash_wide(device, reps, results):
             plan = ""
             if kernel is attention_cuda:
                 plan = f"; {plan_str(B, N, C, dtype)}"
-                if dtype == torch.bfloat16:
+                if dtype == bf16:
                     plan += f"; {k2_device_str(q, k, v)}"
+            elif dtype == bf16:
+                plan = (f"; {flash_plan_str(B, N, C)}; " + flash_device_str(
+                    label, kernel, q, k, v, bound, km / lm))
             print(f"[{label}] {tag} B={B} N={N} C={C}: rel err {rel_e:.2e} "
-                  f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms "
+                  f"(abs {abs_e:.2e}){jax_tiles}; {km:.4f} ms vs plain "
+                  f"{pm:.4f} ms "
                   f"({4 * B * N * N * C / km / 1e9:.1f} TFLOP/s counting "
                   f"4BN^2C), bound {bound:.4f} ms, "
                   f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms"
@@ -1707,26 +1812,14 @@ def check_flash_wide(device, reps, results):
             name = kernel_name("flash_attention_bwd", C)
             q, k, v, do = (torch.randn(B, N, C, generator=g, device=device)
                            .to(dtype) for _ in range(4))
-            got = flash_attention_bwd_cuda(q, k, v, do)
-            torch.cuda.synchronize()
-            want = flash_attention_bwd_reference(q, k, v, do)
-            errs = []
-            for what, a, b in zip(("dq", "dk", "dv"), got, want):
-                abs_e, rel_e = rel_err(a, b)
-                results.record(name, f"{tag} {what}", abs_e, rel_e, TOL[tag])
-                errs.append(f"{what} {rel_e:.2e}")
-            del got, want
-            km, pm = paired_ms(
-                lambda: flash_attention_bwd_cuda(q, k, v, do),
-                lambda: flash_attention_bwd_reference(q, k, v, do), reps,
+            km, pm, line = check_bwd_contracts(
+                "K3b flash bwd", name, tag, q, k, v, do, reps, results,
                 1 if N > 4096 else None)
             lm, backend = sdpa_ms(q, k, v, reps, do)
             bound = add_time(name, km, pm,
                              (10 * B * N * N * C, 7 * B * N * C * e), lm)
             at_least(f"K3b {tag} [{B},{N},{C}]", km, bound)
-            print(f"[K3b flash bwd] {tag} B={B} N={N} C={C}: rel err "
-                  f"{', '.join(errs)}; {km:.4f} ms vs plain {pm:.4f} ms, "
-                  f"bound {bound:.4f} ms, backward of "
+            print(f"{line}; bound {bound:.4f} ms, backward of "
                   f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")
             del q, k, v, do
             torch.cuda.empty_cache()
@@ -2061,7 +2154,10 @@ def hires_paths(device, smi):
             "flash_attention_online": 2 * ATTN_LVL * s,
             "flash_attention": 2 * ATTN_MID * s,
             "flash_attention_bwd": 2 * (ATTN_LVL + ATTN_MID) * s,
-            "attention": 0}, profile=True)
+            "attention": 0}, profile=True,
+        # level 2 (N = 16384) is beyond the backward plan, the middle
+        # block (N = 4096) within it
+        contracts={"flash": 2 * ATTN_MID * s, "dense": 2 * ATTN_LVL * s})
     torch.cuda.empty_cache()
 
     s = WIDE_TRAIN_STEPS
@@ -2074,7 +2170,9 @@ def hires_paths(device, smi):
                 "attention_c512": forwards * ATTN_MID * s,
                 "flash_attention_bwd_c256": forwards * ATTN_LVL * s,
                 "flash_attention_bwd_c512": forwards * ATTN_MID * s,
-                "attention": 0, "flash_attention_bwd": 0})
+                "attention": 0, "flash_attention_bwd": 0},
+            contracts={"flash": 0,
+                       "dense": forwards * (ATTN_LVL + ATTN_MID) * s})
         del model
         torch.cuda.empty_cache()
 
@@ -2237,7 +2335,8 @@ def c64_paths(device, smi):
             label=f"{dataset} {size}px", channels=ch, want={
                 "attention_c64": 2 * fwd * s,
                 "flash_attention_bwd_c64": 2 * fwd * s,
-                "attention": 0, "flash_attention_bwd": 0})
+                "attention": 0, "flash_attention_bwd": 0},
+            contracts={"flash": 0, "dense": 2 * fwd * s})
         pipe = InfoDiffusionPipeline(cfg, model.eval())
         a = torch.randn((B, cfg.a_dim), generator=gen.manual_seed(81),
                         device=device)
@@ -2300,7 +2399,8 @@ def c64_card_vs_cpu(device):
         if dev.type == "cuda":
             calls = 2 * (ATTN_LVL + ATTN_MID)  # the UNet and the Encoder
             expect("mnist card", read_launches(), {
-                "attention_c64": calls, "flash_attention_bwd_c64": calls})
+                "attention_c64": calls, "flash_attention_bwd_c64": calls,
+                contract_key("dense"): calls, contract_key("flash"): 0})
         del model, grads
     _, loss_e = rel_err(outs["cuda"][0], outs["cpu"][0])
     errs = leaf_errors(outs["cuda"][1], outs["cpu"][1])
@@ -2459,8 +2559,9 @@ def main() -> None:
         torch.cuda.empty_cache()
     if run(7):
         for size, batch, steps in TRAIN_RUNS:
-            by_path[f"train_{size}px"] = train_run(size, batch, steps, device,
-                                                   smi)
+            by_path[f"train_{size}px"] = train_run(
+                size, batch, steps, device, smi,
+                contracts=train_contracts(size, steps))
             torch.cuda.empty_cache()
     if run(8):
         train_card_vs_cpu(device)

@@ -41,6 +41,15 @@
 // dsprites, chairs) takes C = 128's kernels with channels 64-127 of the
 // tiles zero, the products stopped at channel 64 where the operands
 // allow, and only 64 channels stored.
+//
+// Contract 1 (kDense) is XLA's autodiff of the dense attention, the
+// gradient the JAX package takes below its flash gate and wherever
+// _bwd_call's plan refuses the shape: dp is rounded to bf16 right after
+// do v^T, delta = rowsum(w bf16(dp)), and ds stays f32 into dq and dk. The
+// bf16 kernels carry it into those products as hi = bf16(ds) plus
+// lo = bf16(ds - hi), two products each (about 2^-17 relative to ds, as
+// K2' carries w); dv does not change. In f32 the two contracts are one
+// function, and the f32 kernels serve both.
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
 
@@ -255,7 +264,26 @@ constexpr size_t kColsSmem = 4 * kTileElems * sizeof(bf16) +
 constexpr size_t kColsChunkedSmem = 5 * kTileElems * sizeof(bf16) +
                                     3 * kTile * sizeof(float);
 
-template <int C>
+// x rounded to bf16 and back
+__device__ __forceinline__ float rbf(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// ds (four values of an accumulator pair) as A fragment words: hi = bf16
+// of ds, and with kDense lo = bf16(ds - hi)
+template <bool kDense>
+__device__ __forceinline__ void pack_ds(const float (&ds)[4], unsigned& h0,
+                                        unsigned& h1, unsigned& l0,
+                                        unsigned& l1) {
+  h0 = pack(ds[0], ds[1]);
+  h1 = pack(ds[2], ds[3]);
+  if (kDense) {
+    l0 = pack(ds[0] - rbf(ds[0]), ds[1] - rbf(ds[1]));
+    l1 = pack(ds[2] - rbf(ds[2]), ds[3] - rbf(ds[3]));
+  }
+}
+
+template <int C, bool kDense>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_rows_mma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -294,7 +322,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e)
         if (k0 + acc_col(n, e) < N)
           delta[e / 2] = fmaf(expf(s[n][e] * scale - m[e / 2]) / l[e / 2],
-                              dp[n][e], delta[e / 2]);
+                              kDense ? rbf(dp[n][e]) : dp[n][e],
+                              delta[e / 2]);
   }
   delta[0] = quad_sum(delta[0]);
   delta[1] = quad_sum(delta[1]);
@@ -314,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
       // at C <= kC ks still holds k's rows; else its slice oc comes here
       s_tile<C>(dp, dos, vs, dob, q0, vb, k0, N, C <= kC ? nullptr : ks, kb,
                 oc);
-      unsigned p[4][4];
+      unsigned p[4][4], lo[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -326,13 +355,15 @@ __global__ void __launch_bounds__(kThreads)
             ds[e] = 0.f;
             if (k0 + acc_col(n, e) < N) {
               const float w = expf(s[n][e] * scale - m[e / 2]) / l[e / 2];
-              ds[e] = w * (dp[n][e] - delta[e / 2]) * scale;
+              const float dpv = kDense ? rbf(dp[n][e]) : dp[n][e];
+              ds[e] = w * (dpv - delta[e / 2]) * scale;
             }
           }
-          p[kk][2 * half] = pack(ds[0], ds[1]);
-          p[kk][2 * half + 1] = pack(ds[2], ds[3]);
+          pack_ds<kDense>(ds, p[kk][2 * half], p[kk][2 * half + 1],
+                          lo[kk][2 * half], lo[kk][2 * half + 1]);
         }
       mm_px<width<C>()>(o, p, ks);
+      if (kDense) mm_px<width<C>()>(o, lo, ks);
     }
     store_rows<C>(dq + off, o, q0, N, oc, one);
   }
@@ -349,7 +380,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // (ii) at C = 64 and 128: dk and dv together, 16 queries at a time
-template <int C>
+template <int C, bool kDense>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_cols_mma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -410,7 +441,7 @@ __global__ void __launch_bounds__(kThreads)
         mma(dp[0], a, bq[0], bq[1]);
         mma(dp[1], a, bq[2], bq[3]);
       }
-      unsigned pw[4], pds[4];
+      unsigned pw[4], pds[4], plo[4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         float w[4], ds[4];
@@ -421,13 +452,14 @@ __global__ void __launch_bounds__(kThreads)
           w[e] = ds[e] = 0.f;
           if (i0 + qi < N && key < N) {
             w[e] = expf(s[n][e] * scale - st[3 * qi]) / st[3 * qi + 1];
-            ds[e] = w[e] * (dp[n][e] - st[3 * qi + 2]) * scale;
+            const float dpv = kDense ? rbf(dp[n][e]) : dp[n][e];
+            ds[e] = w[e] * (dpv - st[3 * qi + 2]) * scale;
           }
         }
         pw[2 * n] = pack(w[0], w[1]);
         pw[2 * n + 1] = pack(w[2], w[3]);
-        pds[2 * n] = pack(ds[0], ds[1]);
-        pds[2 * n + 1] = pack(ds[2], ds[3]);
+        pack_ds<kDense>(ds, pds[2 * n], pds[2 * n + 1], plo[2 * n],
+                        plo[2 * n + 1]);
       }
       // dv += w_c^T do and dk += ds_c^T q over these 16 queries
 #pragma unroll
@@ -439,6 +471,10 @@ __global__ void __launch_bounds__(kThreads)
         load_b_kn(bx, qs, qc, n2 * 16);
         mma(dk_acc[2 * n2], pds, bx[0], bx[1]);
         mma(dk_acc[2 * n2 + 1], pds, bx[2], bx[3]);
+        if (kDense) {
+          mma(dk_acc[2 * n2], plo, bx[0], bx[1]);
+          mma(dk_acc[2 * n2 + 1], plo, bx[2], bx[3]);
+        }
       }
     }
   }
@@ -464,7 +500,7 @@ __global__ void __launch_bounds__(kThreads)
 // w^T (for dv) or ds^T (for dk) go to the product from the accumulators,
 // against the 128-channel slice oc of do or q. dv and dk take separate
 // passes, so a thread holds one 16 x 128 accumulator.
-template <int C>
+template <int C, bool kDense>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_cols_chunked_mma_kernel(const bf16* __restrict__ q,
                                       const bf16* __restrict__ k,
@@ -511,7 +547,7 @@ __global__ void __launch_bounds__(kThreads)
         s_tile<C>(s, ks, qs, kb, j0, qb, i0, N, pass == 0 ? xs : nullptr,
                   dob, oc);
         if (pass == 1) s_tile<C>(dp, vs, dos, vb, j0, dob, i0, N, xs, qb, oc);
-        unsigned p[4][4];
+        unsigned p[4][4], lo[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -526,32 +562,35 @@ __global__ void __launch_bounds__(kThreads)
               if (i0 + qi < N && key < N) {
                 const float w =
                     expf(s[n][e] * scale - st[3 * qi]) / st[3 * qi + 1];
-                x[e] = pass == 0 ? w
-                                 : w * (dp[n][e] - st[3 * qi + 2]) * scale;
+                const float dpv = kDense ? rbf(dp[n][e]) : dp[n][e];
+                x[e] = pass == 0 ? w : w * (dpv - st[3 * qi + 2]) * scale;
               }
             }
-            p[kk][2 * half] = pack(x[0], x[1]);
-            p[kk][2 * half + 1] = pack(x[2], x[3]);
+            // w for dv is rounded under both contracts; ds for dk is not
+            // under kDense
+            pack_ds<kDense>(x, p[kk][2 * half], p[kk][2 * half + 1],
+                            lo[kk][2 * half], lo[kk][2 * half + 1]);
           }
         mm_px(acc, p, xs);
+        if (kDense && pass == 1) mm_px(acc, lo, xs);
       }
       store_rows<C>((pass == 0 ? dv : dk) + off, acc, j0, N, oc, one);
     }
   }
 }
 
-template <int C>
+template <int C, bool kDense>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* rowstats, int B, int N,
            cudaStream_t stream) {
-  auto rows = flash_bwd_rows_mma_kernel<C>;
-  decltype(&flash_bwd_cols_mma_kernel<kC>) cols;
+  auto rows = flash_bwd_rows_mma_kernel<C, kDense>;
+  decltype(&flash_bwd_cols_mma_kernel<kC, kDense>) cols;
   size_t cols_smem;
   if constexpr (C <= kC) {
-    cols = flash_bwd_cols_mma_kernel<C>;
+    cols = flash_bwd_cols_mma_kernel<C, kDense>;
     cols_smem = kColsSmem;
   } else {
-    cols = flash_bwd_cols_chunked_mma_kernel<C>;
+    cols = flash_bwd_cols_chunked_mma_kernel<C, kDense>;
     cols_smem = kColsChunkedSmem;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -581,10 +620,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 template <int C>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              void* dq, void* dk, void* dv, float* rowstats, int B, int N,
-             int dtype, cudaStream_t stream) {
+             int dtype, int contract, cudaStream_t stream) {
+  if (dtype == kBF16 && contract == 1)
+    return mma_bwd::launch<C, true>(q, k, v, dout, dq, dk, dv, rowstats, B,
+                                    N, stream);
   if (dtype == kBF16)
-    return mma_bwd::launch<C>(q, k, v, dout, dq, dk, dv, rowstats, B, N,
-                              stream);
+    return mma_bwd::launch<C, false>(q, k, v, dout, dq, dk, dv, rowstats, B,
+                                     N, stream);
   return fma_bwd::launch<C>(q, k, v, dout, dq, dk, dv, rowstats, B, N,
                             stream);
 }
@@ -592,25 +634,27 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv: [B, N, C] of `dtype`, contiguous, 16-byte
-// aligned, C in {64, 128, 256, 512}; rowstats: [B, N, 3] f32 scratch.
+// aligned, C in {64, 128, 256, 512}; rowstats: [B, N, 3] f32 scratch;
+// contract 0 the Pallas backward's, 1 the dense attention's autodiff.
 INFODIFF_EXPORT int infodiff_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, float* rowstats, int B, int N, int C, int dtype,
-    cudaStream_t stream) {
-  if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+    int contract, cudaStream_t stream) {
+  if (B < 1 || N < 1 || contract < 0 || contract > 1)
+    return (int)cudaErrorInvalidValue;
   switch (C) {
     case 64:
       return dispatch<64>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
-                          stream);
+                          contract, stream);
     case 128:
       return dispatch<128>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
-                           stream);
+                           contract, stream);
     case 256:
       return dispatch<256>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
-                           stream);
+                           contract, stream);
     case 512:
       return dispatch<512>(q, k, v, dout, dq, dk, dv, rowstats, B, N, dtype,
-                           stream);
+                           contract, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,26 +13,23 @@
 //   acc' = acc corr + (p rounded to v's dtype) v  (f32 accumulation)
 // and out = acc / l in v's dtype. m starts at -inf, so the first tile's
 // corr is 0. Unlike K3a, p is rounded unnormalised, after subtracting the
-// running max; the k tile here is 64 keys (JAX: up to 1024), so in bf16
-// the two differ by the rounding of p, not in f32.
+// running max; the k tile here is flash_launch_plan's BK (32 to 128 keys;
+// JAX: up to 1024), so in bf16 the two differ by the rounding of p, not
+// in f32.
 //
-// One pass over k (FA2-style): a block owns 64 query rows and streams k/v
-// in 64-row tiles through shared memory, 4 B N^2 C FLOPs on 4 B N C
-// elements at C = 128, so the products bound it. At C = 256 and 512 the
-// tiles hold 128-channel chunks as in K3a (flash_attention.cu): q k^T sums
-// over the chunks and each 128-channel slice of the output is a pass over
-// k of its own, which recomputes the logits and the identical running
-// statistics. At C = 64 the tiles' channels 64-127 are zero and not
-// stored.
-//
-// bf16 runs the products on the tensor cores (mma.sync m16n8k16,
-// flash_mma.cuh): the running statistics of a row live in the four lanes
-// that hold it, and p goes to PV from the accumulators. f32 runs f32 FMAs
-// (flash_common.cuh); its output rows are laid out across the threads
-// differently from its logit rows, so corr and l pass through shared
-// memory. No backward: the JAX online VJP is the primary's (K3b).
+// One pass over k: a block owns BQ query rows and streams k/v through
+// shared memory, 4 B N^2 C FLOPs on 4 B N C elements, so the products
+// bound it at the model's shapes. bf16 (every main path) runs
+// flash_wgmma.cuh's body: whole-C q tiles and an output accumulator over
+// all C, so the logits are computed once; k/v through a TMA ring; wgmma
+// for q k^T and for PV, p fed from the S accumulators (from shared memory
+// to the second warpgroup at C = 512); the running max and sum of a row
+// live in the four lanes that hold it. f32 runs f32 FMAs on 128-channel
+// chunks (flash_common.cuh); its output rows are laid out across the
+// threads differently from its logit rows, so corr and l pass through
+// shared memory. No backward: the JAX online VJP is the primary's (K3b).
 #include "flash_common.cuh"
-#include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -136,128 +133,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace fma_online
 
-namespace mma_online {
-
-using namespace flash_mma;
-
-constexpr size_t kSmemBytes = 3 * kTileElems * sizeof(bf16);
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    flash_online_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            bf16* __restrict__ out, int N, float scale) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_u4);
-  bf16* ks = qs + kTileElems;
-  bf16* vs = ks + kTileElems;
-  const int b = blockIdx.y, q0 = blockIdx.x * kTile;
-  const size_t off = (size_t)b * N * C;
-  const bf16 *qb = q + off, *kb = k + off, *vb = v + off;
-  if (C <= kC) load_chunk<C>(qs, qb, q0, N, 0);
-
-#pragma unroll 1
-  for (int oc = 0; oc < C; oc += kC) {
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float o[16][4];
-#pragma unroll
-    for (int n = 0; n < 16; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-    for (int k0 = 0; k0 < N; k0 += kTile) {
-      float s[8][4];
-      s_tile<C>(s, qs, ks, qb, q0, kb, k0, N, vs, vb, oc);
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = k0 + acc_col(n, e) < N ? s[n][e] * scale : -INFINITY;
-          mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-        }
-      float corr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // key k0 is valid, so m_new is finite; the first tile's corr is 0
-        const float m_new = fmaxf(m[h], quad_max(mx[h]));
-        corr[h] = expf(m[h] - m_new);
-        m[h] = m_new;
-      }
-      // p = exp(s - m') in f32 for l; rounded to bf16 as A fragments for PV
-      float sum[2] = {0.f, 0.f};
-      unsigned p[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int n = 2 * kk + half;
-          float pe[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            pe[e] = expf(s[n][e] - m[e / 2]);
-            sum[e / 2] += pe[e];
-          }
-          p[kk][2 * half] = pack(pe[0], pe[1]);
-          p[kk][2 * half + 1] = pack(pe[2], pe[3]);
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(sum[h]);
-#pragma unroll
-      for (int n = 0; n < 16; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e / 2];
-      mm_px<width<C>()>(o, p, vs);
-    }
-    store_rows<C>(out + off, o, q0, N, oc, l);
-  }
-}
-
-template <int C>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int N, cudaStream_t stream) {
-  auto kernel = flash_online_mma_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kTile - 1) / kTile, B);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), N,
-      1.0f / sqrtf((float)C));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace mma_online
-
-template <int C>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int N, int dtype, cudaStream_t stream) {
-  if (dtype == kBF16)
-    return mma_online::launch<C>(q, k, v, out, B, N, stream);
-  return fma_online::launch<C>(q, k, v, out, B, N, stream);
-}
-
 }  // namespace
 
 // q, k, v, out: [B, N, C] of `dtype`, contiguous, 16-byte aligned;
-// C in {64, 128, 256, 512}.
-INFODIFF_EXPORT int infodiff_flash_attention_online(const void* q,
-                                                    const void* k,
-                                                    const void* v, void* out,
-                                                    int B, int N, int C,
-                                                    int dtype,
-                                                    cudaStream_t stream) {
+// C in {64, 128, 256, 512}; bf16: bq and smem from flash_launch_plan
+// (ignored in f32).
+INFODIFF_EXPORT int infodiff_flash_attention_online(
+    const void* q, const void* k, const void* v, void* out, int B, int N,
+    int C, int dtype, int bq, int smem, cudaStream_t stream) {
   if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return flash_wgmma::dispatch<false>(q, k, v, out, B, N, C, bq, smem,
+                                        stream);
   switch (C) {
     case 64:
-      return dispatch<64>(q, k, v, out, B, N, dtype, stream);
+      return fma_online::launch<64>(q, k, v, out, B, N, stream);
     case 128:
-      return dispatch<128>(q, k, v, out, B, N, dtype, stream);
+      return fma_online::launch<128>(q, k, v, out, B, N, stream);
     case 256:
-      return dispatch<256>(q, k, v, out, B, N, dtype, stream);
+      return fma_online::launch<256>(q, k, v, out, B, N, stream);
     case 512:
-      return dispatch<512>(q, k, v, out, B, N, dtype, stream);
+      return fma_online::launch<512>(q, k, v, out, B, N, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

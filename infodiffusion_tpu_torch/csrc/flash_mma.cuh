@@ -1,6 +1,8 @@
-// bf16 tensor-core building blocks of the flash-attention kernels (K3a,
-// K3b, K3c): mma.sync m16n8k16 with f32 accumulation and ldmatrix fragment
-// loads from bf16 tiles in shared memory.
+// bf16 tensor-core building blocks of the flash backward (K3b) and of K2's
+// two-pass body beyond its resident strip (forward_two_pass; attention.cu):
+// mma.sync m16n8k16 with f32 accumulation and ldmatrix fragment loads from
+// bf16 tiles in shared memory. The bf16 flash forwards K3a and K3c run on
+// flash_wgmma.cuh instead.
 //
 // A block of 128 threads (4 warps) works on 64-row tiles; a warp owns 16
 // rows (the m16 of the product). A tile holds 128 bf16 channels per row
@@ -261,10 +263,10 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&o)[16][4],
 constexpr size_t kTwoPassSmem = 3 * kTileElems * sizeof(bf16);
 
 // The two-pass forward for the 64 query rows at q0 of qb/kb/vb/ob [N, C]
-// (K3a's body, and K2's beyond its resident strip): pass 1 keeps each
+// (K2's and K2''s beyond their resident strip): pass 1 keeps each
 // row's running max and sum over all keys, pass 2 recomputes the logits,
 // forms w = exp(s - max) / sum in f32 and accumulates w v per 128-channel
-// output slice. w goes to PV rounded to bf16 (K2, K3a) or, with kSplitW,
+// output slice. w goes to PV rounded to bf16 (K2) or, with kSplitW,
 // unrounded as hi = bf16(w) plus lo = bf16(w - hi), two products (K2').
 // smem: kTwoPassSmem bytes.
 template <int C, bool kSplitW = false>

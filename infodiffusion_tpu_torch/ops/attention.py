@@ -21,14 +21,15 @@ from __future__ import annotations
 import torch
 
 from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
-    flash_attention_bwd_cuda,
-    flash_attention_bwd_reference,
+    backward_for,
+    bwd_route,
     flash_min_tokens,
     flash_route,
     forward_for,
 )
 
-__all__ = ["flash_min_tokens", "flash_route", "single_head_attention"]
+__all__ = ["bwd_route", "flash_min_tokens", "flash_route",
+           "single_head_attention"]
 
 
 class _Attention(torch.autograd.Function):
@@ -39,15 +40,14 @@ class _Attention(torch.autograd.Function):
         out = forward_for(route, q.is_cuda)(q, k, v)
         if any(ctx.needs_input_grad):
             ctx.save_for_backward(q, k, v)
+            ctx.bwd_route = bwd_route(q.shape[1], q.shape[2], q.dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        do = do.contiguous()
-        if q.is_cuda:
-            return flash_attention_bwd_cuda(q, k, v, do)
-        return flash_attention_bwd_reference(q, k, v, do)
+        return backward_for(ctx.bwd_route, q.is_cuda)(q, k, v,
+                                                      do.contiguous())
 
 
 def single_head_attention(q: torch.Tensor, k: torch.Tensor,

@@ -18,7 +18,8 @@ plus "route", "device" and "clock".
 Env: INFODIFF_FAB_REPS (default 9), INFODIFF_FAB_CONFIGS (default
 "256x128,512x128,1024x128,2048x64,4096x32" as NxB pairs), INFODIFF_FAB_DTYPE
 (default bf16), INFODIFF_FAB_GRAD=1 to time forward + backward instead
-(the plain version's autograd against the kernel forward and K3b).
+(the plain version's autograd against the kernel forward and K3b on the
+contract JAX's gradient takes, ``bwd_route``).
 
     python -m infodiffusion_tpu_torch.tools.flash_attn_bench [--device cpu]
 """
@@ -33,8 +34,8 @@ import torch
 
 from infodiffusion_tpu_torch.ops.cuda.attention import attention_reference
 from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
-    flash_attention_bwd_cuda,
-    flash_attention_bwd_reference,
+    backward_for,
+    bwd_route,
     flash_plan,
     forward_for,
 )
@@ -83,7 +84,7 @@ def main(device=None) -> list:
                        .to(dtype) for _ in range(4))
         route = flash_plan(N, C, dtype)
         fwd = forward_for(route, cuda)
-        bwd = flash_attention_bwd_cuda if cuda else flash_attention_bwd_reference
+        bwd = backward_for(bwd_route(N, C, dtype), cuda)
 
         if grad_mode:
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]

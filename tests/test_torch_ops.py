@@ -420,8 +420,9 @@ def test_flash_backward_plain_matches_jax_bwd_kernel(dtype):
 
 
 def test_attention_function_grads_match_jax_autodiff():
-    """f32: the Function's backward (K3b's plain version) is the gradient
-    of the dense attention the JAX package differentiates."""
+    """f32: the Function's backward (at N=64 below the flash gate, the
+    dense contract's plain version) is the gradient of the dense attention
+    the JAX package differentiates."""
     q, k, v, do = _qkvdo(2, 64, seed=8)
     _, vjp = jax.vjp(_attention_xla, q, k, v)
     want = vjp(do)
