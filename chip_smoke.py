@@ -10,7 +10,8 @@ on the card. Phases, each printing one line or a few, any failure raising:
 1. device: a CUDA card, or exit non-zero (there is no CPU path); the card's
    name and power limit from nvidia-smi; TF32 off for the f32 phases.
 2. build: the hand-written kernels in ``infodiffusion_tpu_torch/csrc``
-   compiled with nvcc for sm_90a (build time, registers, spills).
+   compiled with nvcc for sm_90a (build time, registers, spills), and
+   HGMMA (wgmma) in the SASS of every bf16 K3b kernel (cuobjdump).
 3. kernels: K1 (adagn), K2 (attention) and K4 (latent trajectory) each
    against its plain PyTorch version on the card, at the shapes of the
    flagship CelebA-64 InfoDiff (AuxiliaryUNet ch 64, ch_mult (1,2,2,2),
@@ -32,7 +33,9 @@ on the card. Phases, each printing one line or a few, any failure raising:
    N=1024 B=64, N=256 B=128 and N=64 B=128 on both contracts (the Pallas
    backward's and the dense attention's autodiff, the main path's first),
    each against its plain version in f32 and bf16, with errors and
-   CUDA-event times of both.
+   CUDA-event times of both; in bf16 K3b's two launches
+   (flash_bwd_launch_plan) and its device time on both contracts against
+   SDPA's backward.
 7. the training slice, bf16, dropout on, random weights from a numpy
    seed: ``create_train_state`` and ``make_train_step`` on the flagship
    InfoDiff (AuxiliaryUNet + Encoder, mmd 0.1, epochs 50) at 64px B=128
@@ -93,7 +96,9 @@ on the card. Phases, each printing one line or a few, any failure raising:
    [8,1024,64], each bf16 shape with its launch plan (flash_launch_plan)
    and its device time against SDPA's; K3b on both contracts at
    [64,256,256], [64,64,512], [4,16384,128], [4,4096,128], [64,256,64] and
-   [64,64,64];
+   [64,64,64] and at one ragged N per C ([2,200,64], [2,1000,128],
+   [3,200,256], [2,100,512]), each bf16 shape with its launch plan and its
+   device time on both contracts against SDPA's backward;
    K2 and K2' at [2,4096,128], beyond the resident strip (two passes); K2'
    (all f32) at [128,256,128] tb=8, its bf16 bound at the bf16 peak with
    its three products (q k^T, PV on w's hi and lo parts); then K1 (B=8 and 4), its backward (B=4)
@@ -120,8 +125,8 @@ on the card. Phases, each printing one line or a few, any failure raising:
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
-Every time is held to its bound: an event time, or a device time (K2 and
-SDPA, from a CUDA graph of calls on copies of the inputs that fill the L2
+Every time is held to its bound: an event time, or a device time (K2,
+K3a, K3b, K3c and SDPA, from a CUDA graph of calls on copies of the inputs that fill the L2
 twice over, whose replay must write every output), below the bound fails.
 
 The line before the last is one JSON object with each kernel's launches
@@ -192,10 +197,11 @@ from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_cuda,
     flash_attention_online_cuda,
     flash_attention_online_reference,
+    flash_bwd_launch_plan,
     flash_launch_plan,
 )
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
-from infodiffusion_tpu_torch.ops.cuda.library import library
+from infodiffusion_tpu_torch.ops.cuda.library import library, library_path
 from infodiffusion_tpu_torch.pipelines import InfoDiffusionPipeline
 from infodiffusion_tpu_torch.tools import (
     flash_attn_bench,
@@ -481,8 +487,12 @@ def device_ms(what, fn, args, bound_ms, reps: int = 20):
     which the event times above hold where a call is short, drops out.
     Raises where the replay left a call's output unwritten (the outputs
     are set to NaN before it) or off the eager call's, or where the reading
-    is below ``bound_ms``."""
-    want = fn(*args).float()
+    is below ``bound_ms``. ``fn`` may return a tuple of outputs (K3b's
+    dq, dk, dv): each is checked."""
+    def outputs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    want = [t.float() for t in outputs(fn(*args))]
     nbytes = sum(t.numel() * t.element_size() for t in args)
     copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
     sets = [args] + [tuple(t.clone() for t in args)
@@ -491,10 +501,11 @@ def device_ms(what, fn, args, bound_ms, reps: int = 20):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        outs = [fn(*sets[i % copies]) for i in range(calls)]
+        outs = [outputs(fn(*sets[i % copies])) for i in range(calls)]
     graph.replay()  # the first replay uploads the graph
     for out in outs:
-        out.fill_(math.nan)
+        for t in out:
+            t.fill_(math.nan)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     graph.replay()
@@ -502,7 +513,8 @@ def device_ms(what, fn, args, bound_ms, reps: int = 20):
     end.synchronize()
     ms = start.elapsed_time(end) / calls
     bad = [i for i, out in enumerate(outs)
-           if not torch.allclose(out.float(), want, rtol=1e-2, atol=1e-2)]
+           if not all(torch.allclose(t.float(), w, rtol=1e-2, atol=1e-2)
+                      for t, w in zip(out, want))]
     if bad:
         raise AssertionError(f"{what}: the graph's replay did not write the "
                              f"output of calls {bad[:8]} of {calls} "
@@ -568,6 +580,55 @@ def flash_device_str(label, kernel, q, k, v, bound_ms, event_ratio) -> str:
             f"x SDPA; events {event_ratio:.2f}x)")
 
 
+def bwd_plan_str(B, N, C) -> str:
+    """K3b's two bf16 launches at [B, N, C] (flash_bwd_launch_plan)."""
+    p = flash_bwd_launch_plan(B, N, C, torch.bfloat16)
+    r, c = p["rows"], p["cols"]
+    return (f"rows {r['blocks']} blocks x {r['threads']} threads, BQ "
+            f"{r['bq']} on {r['warpgroups']} consumer warpgroups, BK "
+            f"{r['bk']}, {r['stages']} stages, {r['smem'] / 1024:.1f} KB; "
+            f"cols {c['blocks']} x {c['threads']}, {c['bk']} keys on "
+            f"{c['warpgroups']}, q tile {c['bq']}, {c['stages']} stages, "
+            f"{c['smem'] / 1024:.1f} KB")
+
+
+def bwd_work(B, N, C, e):
+    """(operations, bytes) of the attention backward on [B, N, C] of
+    ``e``-byte elements: the logits recomputed, dp, dq, dk and dv (five
+    [N, N, C] products); q, k, v, do read and dq, dk, dv written once."""
+    return 10 * B * N * N * C, 7 * B * N * C * e
+
+
+def bwd_device_str(q, k, v, do) -> str:
+    """Device ms of bf16 K3b on both contracts and of SDPA's backward on
+    the same inputs (its forward and backward in one graph, less its
+    forward), each held to the bound."""
+    B, N, C = q.shape
+    bound = Bound()
+    bound.add(*bwd_work(B, N, C, q.element_size()), PEAK["bf16"])
+    fwd = Bound()
+    fwd.add(*attention_work(B, N, C, q.element_size()), PEAK["bf16"])
+    shape = f"[{B},{N},{C}]"
+    dev = {c: device_ms(f"K3b {c} {shape}", functools.partial(
+        flash_attention_bwd_cuda, contract=c), (q, k, v, do), bound.ms)
+        for c in BWD_PLAIN}
+
+    def sdpa_fwd_bwd(q, k, v, do):
+        q, k, v = (t.unsqueeze(1).detach().requires_grad_(True)
+                   for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), do.unsqueeze(1))
+
+    both = device_ms(f"SDPA forward and backward {shape}", sdpa_fwd_bwd,
+                     (q, k, v, do), bound.ms)
+    only_fwd = device_ms(f"SDPA {shape}", F.scaled_dot_product_attention,
+                         tuple(t.unsqueeze(1) for t in (q, k, v)), fwd.ms)
+    sdpa = both - only_fwd
+    return (f"device dense {dev['dense']:.4f} ms, flash {dev['flash']:.4f} "
+            f"ms against SDPA's backward {sdpa:.4f} ms ({both:.4f} with its "
+            f"forward; bound {bound.ms:.4f})")
+
+
 def check_bwd_contracts(label, name, tag, q, k, v, do, reps, results,
                         plain_reps=None):
     """K3b on both contracts against their plain versions, the main path's
@@ -595,6 +656,8 @@ def check_bwd_contracts(label, name, tag, q, k, v, do, reps, results,
         parts.append(f"{contract}{' (main path)' if contract == route else ''}"
                      f": rel err {', '.join(errs)}; {km:.4f} ms vs plain "
                      f"{pm:.4f} ms")
+    if q.dtype == torch.bfloat16:
+        parts.append(f"{bwd_plan_str(B, N, C)}; {bwd_device_str(q, k, v, do)}")
     return main[0], main[1], f"[{label}] {tag} B={B} N={N} C={C}: " + "; ".join(
         parts)
 
@@ -697,6 +760,35 @@ def build() -> None:
           f"{time.perf_counter() - t0:.1f} s); {len(regs)} kernels, max "
           f"{max(regs) if regs else '?'} registers; spills: "
           f"{spills if spills else 'none'}")
+    counts = hgmma_counts(library_path())
+    if not counts or min(counts.values()) == 0:
+        raise AssertionError(f"K3b's bf16 kernels without HGMMA: {counts}")
+    for kind in ("rows", "cols"):
+        n = [c for f, c in counts.items() if f"{kind}_kernel" in f]
+        print(f"[build] cuobjdump -sass: HGMMA in all {len(n)} bf16 K3b "
+              f"{kind} kernels ({min(n)}-{max(n)} each)")
+
+
+def hgmma_counts(lib_path) -> dict:
+    """HGMMA (wgmma) instructions per bf16 K3b kernel (flash_bwd::) in the
+    built library's SASS, by cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            # flash_bwd::rows_kernel / cols_kernel (the f32 body is
+            # fma_bwd's)
+            fn = fn if fn.startswith("_ZN9flash_bwd") else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def adagn_sites(model, run):
@@ -951,8 +1043,7 @@ def check_flash(device, reps, results):
         for B, N in ((64, 1024), (128, 256), (128, 64)):
             q, k, v, do = (torch.randn(B, N, 128, generator=g, device=device)
                            .to(dtype) for _ in range(4))
-            # recompute s, then dv, dp, dq, dk: 10 B N^2 C
-            bnd.add(10 * B * N * N * 128, 7 * B * N * 128 * e, PEAK[tag])
+            bnd.add(*bwd_work(B, N, 128, e), PEAK[tag])
             lib_ms += sdpa_ms(q, k, v, reps, do)[0]
             km, pm, line = check_bwd_contracts(
                 "K3b flash bwd", "flash_attention_bwd", tag, q, k, v, do, reps,
@@ -1739,6 +1830,9 @@ PRIMARY_SHAPES = ((8, 4096, 128), (32, 1024, 256), (16, 1024, 512),
                   (8, 1024, 64))
 BWD_SHAPES = ((64, 256, 256), (64, 64, 512), (4, 16384, 128),
               (4, 4096, 128), (64, 256, 64), (64, 64, 64))
+# K3b at N no tile divides, one per C (TMA's zero fill and the masks on
+# rows and columns past N), on both contracts whichever bwd_route picks
+BWD_RAGGED = ((2, 200, 64), (2, 1000, 128), (3, 200, 256), (2, 100, 512))
 STREAM_SHAPE = (2, 4096, 128)
 TILED_SHAPE, TILED_TB = (128, 256, 128), 8
 
@@ -1808,7 +1902,7 @@ def check_flash_wide(device, reps, results):
                   f"{plan}")
             del q, k, v
             torch.cuda.empty_cache()
-        for B, N, C in BWD_SHAPES:
+        for B, N, C in BWD_SHAPES + BWD_RAGGED:
             name = kernel_name("flash_attention_bwd", C)
             q, k, v, do = (torch.randn(B, N, C, generator=g, device=device)
                            .to(dtype) for _ in range(4))
@@ -1816,8 +1910,7 @@ def check_flash_wide(device, reps, results):
                 "K3b flash bwd", name, tag, q, k, v, do, reps, results,
                 1 if N > 4096 else None)
             lm, backend = sdpa_ms(q, k, v, reps, do)
-            bound = add_time(name, km, pm,
-                             (10 * B * N * N * C, 7 * B * N * C * e), lm)
+            bound = add_time(name, km, pm, bwd_work(B, N, C, e), lm)
             at_least(f"K3b {tag} [{B},{N},{C}]", km, bound)
             print(f"{line}; bound {bound:.4f} ms, backward of "
                   f"F.scaled_dot_product_attention ({backend}) {lm:.4f} ms")

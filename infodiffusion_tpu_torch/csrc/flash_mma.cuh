@@ -1,8 +1,10 @@
-// bf16 tensor-core building blocks of the flash backward (K3b) and of K2's
-// two-pass body beyond its resident strip (forward_two_pass; attention.cu):
-// mma.sync m16n8k16 with f32 accumulation and ldmatrix fragment loads from
-// bf16 tiles in shared memory. The bf16 flash forwards K3a and K3c run on
-// flash_wgmma.cuh instead.
+// bf16 tensor-core building blocks of K2's and K2''s two-pass body beyond
+// their resident strip (forward_two_pass; attention.cu), whose fragment
+// helpers K2's strip body and K6 (shortcut_fused.cu) also use: mma.sync
+// m16n8k16 with f32 accumulation and ldmatrix fragment loads from bf16
+// tiles in shared memory. The bf16 flash forwards K3a / K3c and the
+// backward K3b run on Hopper's warpgroup products instead
+// (flash_wgmma.cuh, flash_bwd_wgmma.cuh).
 //
 // A block of 128 threads (4 warps) works on 64-row tiles; a warp owns 16
 // rows (the m16 of the product). A tile holds 128 bf16 channels per row
@@ -13,15 +15,15 @@
 // shared memory and the accumulators stay those of C = 128. At C = 64 a
 // chunk load fills channels 64-127 with zeros and the products and stores
 // stop at channel 64 (width<C>()), so the function is exactly that of the
-// 64 channels: the zeros add nothing to q k^T or do v^T, the scale stays
-// C^-1/2, and dq, dk, dv are not stored there.
+// 64 channels: the zeros add nothing to q k^T, the scale stays C^-1/2, and
+// the output's channels 64-127 are not stored.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), g = lane / 4 and
 // t = lane % 4: an accumulator holds rows g and g + 8, columns 2t and
 // 2t + 1 of a 16 x 8 tile; an A fragment holds rows g and g + 8, k = 2t,
 // 2t + 1 and 2t + 8, 2t + 9 of a 16 x 16 tile. Two neighbouring
 // accumulator tiles, rounded to bf16 and packed in pairs, are therefore
-// one A fragment: the softmax weights and ds feed the next product from
+// one A fragment: the softmax weights feed the next product from
 // registers.
 #pragma once
 

@@ -27,7 +27,10 @@ of p unless the plain version is given the kernel's tile.
 The bf16 forwards run on Hopper's warpgroup products (``wgmma``, f32
 accumulation; ``csrc/flash_wgmma.cuh``) with k and v streamed by TMA through
 a ring in shared memory; ``flash_launch_plan`` says what a shape launches.
-f32 runs them as FMAs on f32 tiles (``csrc/flash_common.cuh``).
+The bf16 backward runs on the same design (``csrc/flash_bwd_wgmma.cuh``:
+the row statistics in one online pass, then dq; dk and dv in a second
+launch); ``flash_bwd_launch_plan`` says what it launches. f32 runs them as
+FMAs on f32 tiles (``csrc/flash_common.cuh``).
 
 The backward has two contracts, and ``bwd_route`` picks the one the JAX
 package differentiates for (N, C, dtype):
@@ -113,6 +116,46 @@ def flash_launch_plan(B: int, N: int, C: int, dtype: torch.dtype) -> dict:
     return dict(bq=bq, warpgroups=warpgroups, bk=bk, stages=stages,
                 threads=128 * (warpgroups + 1), smem=smem,
                 blocks=B * -(-N // bq))
+
+
+# K3b's bf16 tiles (csrc/flash_bwd_wgmma.cuh), per C: the streamed tile
+# (k/v rows of the rows launch, q/do rows of the cols launch) and the
+# stages of each ring
+_BWD_TILES = {64: (64, 3), 128: (64, 3), 256: (64, 2), 512: (32, 1)}
+STAT_ALIGN = 128  # the statistics scratch's rows: N rounded up to this
+
+
+def flash_bwd_launch_plan(B: int, N: int, C: int, dtype: torch.dtype) -> dict:
+    """What K3b launches in bf16 for [B, N, C] (its body,
+    ``csrc/flash_bwd_wgmma.cuh``), both contracts: ``rows`` (dq and the row
+    statistics: query rows a block ``bq``, the k/v tile ``bk``) and
+    ``cols`` (dk and dv: keys a block ``bk``, the q/do tile ``bq``), each
+    with its consumer ``warpgroups``, ring ``stages``, ``threads``,
+    ``smem`` bytes and ``blocks``; ``stat_rows`` is the statistics
+    scratch's rows per batch element (f32 [B, 2, stat_rows]). At C = 64 /
+    128 a warpgroup owns 64 rows (keys), two a block while the grid of
+    128-row blocks has at least as many blocks as the card has SMs, else
+    one; at C = 256 / 512 two warpgroups share 64 rows and split the
+    output's channels."""
+    if dtype != torch.bfloat16 or C not in _BWD_TILES:
+        raise ValueError(f"K3b's wgmma body takes bf16 at C in {CHANNELS}, "
+                         f"got {dtype} at C={C}")
+    tile, stages = _BWD_TILES[C]
+    split = C >= 256
+    wg = 2 if split or B * -(-N // 128) >= SMS else 1
+    own = 64 if split else 64 * wg  # rows (keys) a block
+    threads = 128 * (wg + 1)
+    ring = 2 * stages * tile * C * 2  # two tiles a stage
+    rows = dict(bq=own, bk=tile, warpgroups=wg, stages=stages,
+                threads=threads, blocks=B * -(-N // own),
+                smem=1024 + 2 * own * C * 2 + ring
+                + (2 * 64 * tile * 2 if split else 0) + 64)
+    cols = dict(bk=own, bq=tile, warpgroups=wg, stages=stages,
+                threads=threads, blocks=B * -(-N // own),
+                smem=1024 + 2 * own * C * 2 + ring + stages * 2 * tile * 4
+                + (3 * 64 * tile * 2 if split else 0) + 64)
+    return dict(rows=rows, cols=cols,
+                stat_rows=-(-N // STAT_ALIGN) * STAT_ALIGN)
 
 
 def flash_min_tokens() -> int:
@@ -319,13 +362,22 @@ def flash_attention_bwd_cuda(q, k, v, do, contract: str = "flash"):
     _check((q, k, v, do), ("q", "k", "v", "do"))
     B, N, C = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    rowstats = torch.empty((B, N, 3), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        plan = flash_bwd_launch_plan(B, N, C, q.dtype)
+        launch = (plan["rows"]["bq"], plan["rows"]["smem"],
+                  plan["cols"]["bk"], plan["cols"]["smem"], plan["stat_rows"])
+        stats = torch.empty((B, 2, plan["stat_rows"]), dtype=torch.float32,
+                            device=q.device)
+    else:
+        launch = (0, 0, 0, 0, 0)
+        stats = torch.empty((B, N, 3), dtype=torch.float32, device=q.device)
     lib = _lib.library().lib
     with torch.cuda.device(q.device):
         err = lib.infodiff_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rowstats.data_ptr(),
-            B, N, C, _lib.DTYPE_CODES[q.dtype], code, _lib.stream_handle(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            B, N, C, _lib.DTYPE_CODES[q.dtype], code, *launch,
+            _lib.stream_handle(),
         )
     _lib.check_launch(err, "flash_attention_bwd")
     flash_attention_bwd_cuda.launches += 1
