@@ -11,7 +11,9 @@ on the card. Phases, each printing one line or a few, any failure raising:
    name and power limit from nvidia-smi; TF32 off for the f32 phases.
 2. build: the hand-written kernels in ``infodiffusion_tpu_torch/csrc``
    compiled with nvcc for sm_90a (build time, registers, spills), and
-   HGMMA (wgmma) in the SASS of every bf16 K3b kernel (cuobjdump).
+   warpgroup products in the SASS (cuobjdump) of every Hopper body: HGMMA
+   (bf16 wgmma) in each bf16 K3b and K6 kernel, IGMMA (s8) in each int8
+   conv kernel.
 3. kernels: K1 (adagn), K2 (attention) and K4 (latent trajectory) each
    against its plain PyTorch version on the card, at the shapes of the
    flagship CelebA-64 InfoDiff (AuxiliaryUNet ch 64, ch_mult (1,2,2,2),
@@ -47,25 +49,31 @@ on the card. Phases, each printing one line or a few, any failure raising:
    injected draws, ``deterministic=True``: the loss and every gradient
    leaf, then every parameter after one optimizer step on each device
    from the same (the CPU's) gradients.
-9. int8 kernels: the chainless int8 conv (exact in s32), K7 v1 (relative
-   L2, max error, the int8 flips counted through the kernel) and v2
-   (bitwise v1) at every distinct quantized conv site of one flagship
+9. int8 kernels: the chainless int8 conv (exact on the s32 contract and
+   on the route's: scale, bias and a bf16 partial to bf16), K7 v1
+   (relative L2, max error, the int8 flips counted through the kernel) and
+   v2 (bitwise v1) at every distinct quantized conv site of one flagship
    forward at B=128, bf16, and K4's int8 weight stream at B=128 d=256
    S=1000, each against its plain version with CUDA-event times, the
-   card's bound and, for the int8 conv, cuDNN's bf16 conv as a yardstick.
+   card's bound and, for the int8 conv, its launch plan, cuDNN's bf16 conv
+   as a yardstick and the CUDA-graph device times of both contracts and of
+   cuDNN.
 10. the int8 slice, flagship, bf16, B=128:
    ``LatentDiffusionProcess(turbo='int8').sampling`` then
    ``DiffusionProcess(turbo='int8').sampling(num_steps=100)`` on the
    default route, with ``INFODIFF_ENABLE_FUSED_QCONV=1`` (K7) and with
    ``INFODIFF_QCONV_V2=1`` as well: latents/s, samples/s, the images'
-   relative L2 against the bf16 slice from the same xT and a, launches.
+   relative L2 against the bf16 slice from the same xT and a, exact
+   launches per route; a torch.profiler breakdown of two default-route
+   DDIM steps (device ms by kernel, idle share).
 11. card against CPU, int8: f32, B=2, the quant state calibrated once on
    the CPU and carried across; latents T=1000 then DDIM-10 per route.
 12. the vanilla / two-phase slice's kernels, each against its plain
    version in f32 and bf16 with CUDA-event times, bound and library time:
    K6 (fused shortcut) at every shortcut site of one flagship InfoDiff
-   forward (13) and one vanilla UNet forward (15) at B=64, and the host
-   time per shortcut call on both routes at the vanilla sites; K5 (one
+   forward (13) and one vanilla UNet forward (15) at B=64 (in bf16 with
+   its launch plan and CUDA-graph device time against torch.addmm's), and
+   the host time per shortcut call on both routes at the vanilla sites; K5 (one
    LatentUNet forward) at B=128 d=256; K2 at C=256 (N=256), C=512
    (N=64) and C=64 (N=64 and 256: the mnist and chairs InfoDiff), B=64,
    with its launch; K2' at the C=64 shapes (errors; in bf16 also its mean
@@ -277,6 +285,17 @@ INT8_ROUTE_KERNELS = {
                       "attention"),
 }
 
+# exact launches of one latent run and one DDIM-100 per route: per UNet
+# forward 84 int8 convs on the default route; on the fused ones K7 takes
+# 66 of them and 6 stay int8 convs; K2 6 a forward; K4's int8 stream once
+INT8_LAUNCHES = {
+    route: {"int8_conv": n_conv * INT8_STEPS, "qconv": k7 * INT8_STEPS,
+            "qconv_v2": k7v2 * INT8_STEPS, "attention": 6 * INT8_STEPS,
+            "latent_traj_int8": 1}
+    for route, n_conv, k7, k7v2 in (("int8_default", 84, 0, 0),
+                                    ("int8_fused", 6, 66, 0),
+                                    ("int8_fused_v2", 6, 0, 66))}
+
 KERNELS = {
     "adagn": dict(fn=adagn_cuda, route="cuda",
                   source="infodiffusion_tpu_torch/csrc/adagn.cu",
@@ -333,7 +352,9 @@ KERNELS.update({
     "int8_conv": dict(fn=K7.int8_conv_cuda, route="cuda",
                       library="F.conv2d in bf16 (cuDNN) at the same shape: "
                               "no PyTorch call computes the int8 conv",
-                      source="infodiffusion_tpu_torch/csrc/qconv.cu",
+                      # (bound by infodiff_int8_conv in csrc/qconv.cu)
+                      source="infodiffusion_tpu_torch/csrc/"
+                             "int8_conv_wgmma.cuh",
                       replaces="XLA int8 conv of "
                                "infodiffusion_tpu/ops/quant.py:142 "
                                "(int8_conv)"),
@@ -488,7 +509,8 @@ def device_ms(what, fn, args, bound_ms, reps: int = 20):
     Raises where the replay left a call's output unwritten (the outputs
     are set to NaN before it) or off the eager call's, or where the reading
     is below ``bound_ms``. ``fn`` may return a tuple of outputs (K3b's
-    dq, dk, dv): each is checked."""
+    dq, dk, dv): each is checked. Integer outputs are set to their type's
+    least value instead of NaN."""
     def outputs(x):
         return x if isinstance(x, tuple) else (x,)
 
@@ -505,7 +527,8 @@ def device_ms(what, fn, args, bound_ms, reps: int = 20):
     graph.replay()  # the first replay uploads the graph
     for out in outs:
         for t in out:
-            t.fill_(math.nan)
+            t.fill_(math.nan if t.is_floating_point()
+                    else torch.iinfo(t.dtype).min)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     graph.replay()
@@ -760,18 +783,30 @@ def build() -> None:
           f"{time.perf_counter() - t0:.1f} s); {len(regs)} kernels, max "
           f"{max(regs) if regs else '?'} registers; spills: "
           f"{spills if spills else 'none'}")
-    counts = hgmma_counts(library_path())
-    if not counts or min(counts.values()) == 0:
-        raise AssertionError(f"K3b's bf16 kernels without HGMMA: {counts}")
-    for kind in ("rows", "cols"):
-        n = [c for f, c in counts.items() if f"{kind}_kernel" in f]
-        print(f"[build] cuobjdump -sass: HGMMA in all {len(n)} bf16 K3b "
-              f"{kind} kernels ({min(n)}-{max(n)} each)")
+    counts = gmma_counts(library_path())
+    for what, op, bodies in GMMA_BODIES:
+        n = {f: c[op] for f, c in counts.items() if bodies(f)}
+        if not n or min(n.values()) == 0:
+            raise AssertionError(f"{what} kernels without {op}: {n}")
+        print(f"[build] cuobjdump -sass: {op} in all {len(n)} {what} kernels "
+              f"({min(n.values())}-{max(n.values())} each)")
 
 
-def hgmma_counts(lib_path) -> dict:
-    """HGMMA (wgmma) instructions per bf16 K3b kernel (flash_bwd::) in the
-    built library's SASS, by cuobjdump."""
+# the warpgroup products each Hopper body must compile to, by kernel name:
+# (what, SASS mnemonic, which functions)
+GMMA_BODIES = (
+    ("bf16 K3b rows", "HGMMA",
+     lambda f: f.startswith("_ZN9flash_bwd") and "rows_kernel" in f),
+    ("bf16 K3b cols", "HGMMA",
+     lambda f: f.startswith("_ZN9flash_bwd") and "cols_kernel" in f),
+    ("int8 conv", "IGMMA", lambda f: f.startswith("_ZN10int8_wgmma")),
+    ("bf16 K6", "HGMMA", lambda f: "shortcut_wgmma_kernel" in f),
+)
+
+
+def gmma_counts(lib_path) -> dict:
+    """Warpgroup product instructions (HGMMA: bf16 wgmma; IGMMA: s8) per
+    kernel in the built library's SASS, by cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run(
@@ -781,13 +816,11 @@ def hgmma_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            # flash_bwd::rows_kernel / cols_kernel (the f32 body is
-            # fma_bwd's)
-            fn = fn if fn.startswith("_ZN9flash_bwd") else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn] = {"HGMMA": 0, "IGMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "IGMMA"):
+                if op in line:
+                    counts[fn][op] += 1
     return counts
 
 
@@ -1248,48 +1281,147 @@ def qconv_sites(model, run):
     return sorted(chainless), sorted(fused)
 
 
+def int8_plan_str(B, h, w, c, cout, s) -> str:
+    """The int8 conv's launch at one site (int8_conv_launch_plan)."""
+    p = K7.int8_conv_launch_plan(B, h, w, K7.int8_conv_cin(c), cout, s)
+    tile = (f"{p['ipt']} images of {p['th']}x{p['tw']}" if p["ipt"] > 1
+            else f"{p['th']}x{p['tw']}")
+    return (f"{p['blocks']} blocks x {p['threads']} threads over "
+            f"{p['tiles']} tiles of {tile}, N {p['n']} x {p['nsplit']}, "
+            f"weights {'resident' if p['resident'] else 'streamed'} "
+            f"({p['stages']} stages of {p['w_stage'] / 1024:.1f} KB), "
+            f"{p['smem'] / 1024:.1f} KB")
+
+
+# ragged (B, H, W, Cin, Cout, stride): odd sizes, Cin padded to 32 or 64,
+# Cout off the N tile and off a multiple of 4 (per-channel stores), Cout
+# past one N tile (split, streamed weights), Cin past one weight panel
+INT8_RAGGED = ((3, 7, 9, 32, 40, 1), (3, 5, 5, 64, 40, 2), (2, 9, 7, 3, 16, 1),
+               (2, 6, 11, 160, 300, 2), (1, 20, 150, 96, 24, 1),
+               (3, 1, 1, 32, 8, 2), (2, 5, 7, 32, 30, 1), (2, 4, 4, 40, 7, 2))
+
+
+def int8_conv_inputs(B, h, w, c, cout, s, g, device):
+    """Random int8 x [B, h, w, c] and k [3, 3, c, cout], and the route
+    contract's f32 scale and bias and bf16 partial."""
+    xq = torch.randint(-127, 128, (B, h, w, c), generator=g, device=device,
+                       dtype=torch.int8)
+    kq = torch.randint(-127, 128, (3, 3, c, cout), generator=g,
+                       device=device, dtype=torch.int8)
+    ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+    scale = 1e-3 * torch.rand(cout, generator=g, device=device)
+    bias = torch.randn(cout, generator=g, device=device)
+    partial = torch.randn(B, ho, wo, cout, generator=g, device=device).to(
+        torch.bfloat16)
+    return xq, kq, scale, bias, partial
+
+
+def check_int8_contracts(tag, xq, kq, s, scale, bias, partial, results):
+    """The int8 conv exact against its plain version on the three
+    contracts: s32 out, f32(acc) * scale + bias to bf16, and that with a
+    bf16 partial added."""
+    bf16 = torch.bfloat16
+    want = Q.int8_conv_reference(xq, kq, s)
+    for contract, kw in (
+            ("s32", {}),
+            ("route", dict(scale=scale, bias=bias, out_dtype=bf16)),
+            ("partial", dict(scale=scale, bias=bias, partial=partial,
+                             out_dtype=bf16))):
+        got = K7.int8_conv_cuda(xq, kq, s, **kw)
+        torch.cuda.synchronize()
+        ref = K7.int8_conv_epilogue(want, **kw) if kw else want
+        diff = float((got.double() - ref.double()).abs().max().item())
+        results.record("int8_conv", f"{tag} {contract}", diff, diff,
+                       TOL["int8_conv"])
+        del got, ref
+
+
 def check_int8_conv(sites, device, reps, results):
-    """The chainless int8 conv at every distinct site, B=BATCH: exact in
-    s32 against its plain version; times beside cuDNN's bf16 conv at the
-    same shape (no PyTorch call computes the int8 conv)."""
+    """The chainless int8 conv at every distinct site, B=BATCH, on both
+    contracts, each exact against its plain version: s32 out (earlier PRs'
+    row), and the route's (``Conv3._int8``: f32(acc) * scale + bias to
+    bf16; ``PieceConv3`` also adds a bf16 partial). Per site its plan, the
+    CUDA-event times of both contracts beside the plain version's and
+    cuDNN's bf16 conv (without and with its bias, bf16 out: no PyTorch
+    call computes the int8 conv), and CUDA-graph device times of both
+    contracts and of cuDNN's conv without bias (beside s32) and with it
+    (beside the route's) on inputs rotated past the L2, each held to its
+    bound. Then the ragged shapes (``INT8_RAGGED``), exact on the three
+    contracts."""
     g = torch.Generator(device=device).manual_seed(7)
     B = BATCH
-    ms = plain_ms = lib_ms = 0.0
-    bnd = Bound()
+    bf16 = torch.bfloat16
+    tot = dict.fromkeys(("s32", "route", "plain", "lib", "lib_route",
+                         "dev_s32", "dev_route", "dev_lib", "dev_lib_route"),
+                        0.0)
+    bnd, bnd_route = Bound(), Bound()
     for h, w, c, cout, s in sites:
-        xq = torch.randint(-127, 128, (B, h, w, c), generator=g,
-                           device=device, dtype=torch.int8)
-        kq = torch.randint(-127, 128, (3, 3, c, cout), generator=g,
-                           device=device, dtype=torch.int8)
-        got = K7.int8_conv_cuda(xq, kq, s)
-        torch.cuda.synchronize()
-        want = Q.int8_conv_reference(xq, kq, s)
-        diff = float((got.long() - want.long()).abs().max().item())
-        results.record("int8_conv", f"{h}x{w} C{c}->{cout} s{s}", diff, diff,
-                       TOL["int8_conv"])
-        del got, want
+        xq, kq, scale, bias, partial = int8_conv_inputs(B, h, w, c, cout, s,
+                                                        g, device)
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        tag = f"{h}x{w} C{c}->{cout} s{s}"
+        check_int8_contracts(tag, xq, kq, s, scale, bias, partial, results)
+
+        def route(xq, kq, scale, bias):
+            return K7.int8_conv_cuda(xq, kq, s, scale=scale, bias=bias,
+                                     out_dtype=bf16)
+
         km, pm = paired_ms(lambda: K7.int8_conv_cuda(xq, kq, s),
                            lambda: Q.int8_conv_reference(xq, kq, s), reps, 1)
+        rm = cuda_ms(lambda: route(xq, kq, scale, bias), reps)
         xb = torch.randn(B, c, h, w, generator=g, device=device).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            bf16).contiguous(memory_format=torch.channels_last)
         wb = torch.randn(cout, c, 3, 3, generator=g, device=device).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            bf16).contiguous(memory_format=torch.channels_last)
+        bb = bias.to(bf16)
         lm = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=1), reps)
-        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        lrm = cuda_ms(lambda: F.conv2d(xb, wb, bb, stride=s, padding=1),
+                      reps)
         ops = 2 * B * ho * wo * 9 * c * cout
-        b_ms = bnd.add(ops, B * h * w * c + 9 * c * cout
-                       + 4 * B * ho * wo * cout, PEAK["int8"])
-        at_least(f"int8 conv {h}x{w} C={c}->{cout}", km, b_ms)
-        ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
-        print(f"[int8 conv] B={B} {h}x{w} C={c}->{cout} stride {s}: s32 max "
-              f"abs diff {diff:.0f}; {km:.4f} ms ({ops / km / 1e9:.1f} TOP/s) "
-              f"vs plain {pm:.4f} ms, bound {b_ms:.4f} ms, cuDNN bf16 conv "
-              f"{lm:.4f} ms")
-        del xq, kq, xb, wb
-    print(f"[int8 conv] all {len(sites)} sites once: {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by}), cuDNN bf16 "
-          f"conv {lib_ms:.4f} ms")
-    results.time("int8_conv", "bf16", ms, plain_ms, bnd, lib_ms)
+        inputs = B * h * w * c + 9 * c * cout
+        b_ms = bnd.add(ops, inputs + 4 * B * ho * wo * cout, PEAK["int8"])
+        br_ms = bnd_route.add(ops, inputs + 8 * cout + 2 * B * ho * wo * cout,
+                              PEAK["int8"])
+        at_least(f"int8 conv {tag}", km, b_ms)
+        at_least(f"int8 conv {tag} route contract", rm, br_ms)
+        dk = device_ms(f"int8 conv {tag}", functools.partial(
+            K7.int8_conv_cuda, stride=s), (xq, kq), b_ms)
+        dr = device_ms(f"int8 conv {tag} route contract", route,
+                       (xq, kq, scale, bias), br_ms)
+        dl = device_ms(f"cuDNN bf16 conv {tag}", lambda x, k: F.conv2d(
+            x, k, stride=s, padding=1), (xb, wb), 0.0)
+        dlr = device_ms(f"cuDNN bf16 conv {tag} + bias", lambda x, k, b:
+                        F.conv2d(x, k, b, stride=s, padding=1), (xb, wb, bb),
+                        0.0)
+        for k, v in (("s32", km), ("route", rm), ("plain", pm), ("lib", lm),
+                     ("lib_route", lrm), ("dev_s32", dk), ("dev_route", dr),
+                     ("dev_lib", dl), ("dev_lib_route", dlr)):
+            tot[k] += v
+        print(f"[int8 conv] B={B} {tag}: exact on s32, route and partial "
+              f"contracts; {int8_plan_str(B, h, w, c, cout, s)}; s32 "
+              f"{km:.4f} ms ({ops / km / 1e9:.1f} TOP/s), route {rm:.4f} ms "
+              f"vs plain {pm:.4f} ms, bound s32 {b_ms:.4f} / route "
+              f"{br_ms:.4f} ms, cuDNN bf16 conv {lm:.4f} (+ bias {lrm:.4f}) "
+              f"ms; device s32 {dk:.4f} against cuDNN's {dl:.4f} ms, route "
+              f"{dr:.4f} against cuDNN's with bias {dlr:.4f} ms")
+        del xq, kq, xb, wb, partial
+    print(f"[int8 conv] all {len(sites)} sites once: s32 {tot['s32']:.4f} "
+          f"ms, route {tot['route']:.4f} ms vs plain {tot['plain']:.4f} ms, "
+          f"bound s32 {bnd.ms:.4f} ms ({bnd.by}) / route {bnd_route.ms:.4f} "
+          f"ms ({bnd_route.by}), cuDNN bf16 conv {tot['lib']:.4f} (+ bias "
+          f"{tot['lib_route']:.4f}) ms; device s32 {tot['dev_s32']:.4f} "
+          f"against cuDNN's {tot['dev_lib']:.4f} ms, route "
+          f"{tot['dev_route']:.4f} against cuDNN's with bias "
+          f"{tot['dev_lib_route']:.4f} ms")
+    results.time("int8_conv", "bf16", tot["s32"], tot["plain"], bnd,
+                 tot["lib"])
+    for B, h, w, c, cout, s in INT8_RAGGED:
+        tag = f"B={B} {h}x{w} C{c}->{cout} s{s}"
+        xq, kq, scale, bias, partial = int8_conv_inputs(B, h, w, c, cout, s,
+                                                        g, device)
+        check_int8_contracts(tag, xq, kq, s, scale, bias, partial, results)
+        print(f"[int8 conv] ragged {tag}: exact on s32, route and partial "
+              f"contracts; {int8_plan_str(B, h, w, c, cout, s)}")
 
 
 def kernel_q(run, pieces, A, Bv, s):
@@ -1454,6 +1586,10 @@ def int8_slice(device, smi):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches = read_launches()
+            if route == "int8_default":  # where its device time goes
+                profile_steps(lambda: turbo.sampling(xT=xT, a=a, num_steps=2),
+                              f"int8 default DDIM, 2 steps, B={BATCH}", smi,
+                              top=8)
         if tuple(images.shape) != (BATCH, SIZE, SIZE, 3):
             raise AssertionError(f"{route}: images {tuple(images.shape)}")
         if not (torch.isfinite(images).all() and torch.isfinite(lats).all()):
@@ -1461,6 +1597,7 @@ def int8_slice(device, smi):
         idle = [k for k in INT8_ROUTE_KERNELS[route] if launches[k] == 0]
         if idle:
             raise AssertionError(f"{route}: kernels not launched: {idle}")
+        expect(route, launches, INT8_LAUNCHES[route])
         moved = {k: v for k, v in launches.items() if v}
         print(f"[int8 slice] {route} B={BATCH}: latents (T={T}, int8 "
               f"weights) {t1 - t0:.3f} s = {BATCH / (t1 - t0):.2f} latents/s; "
@@ -1639,32 +1776,43 @@ def forward_sites(device):
             "vae_decoder": shortcut_sites(vae, lambda: vae.decode(a))}
 
 
+def shortcut_plan_str(M, cs, n) -> str:
+    """K6's bf16 launch at one site (shortcut_launch_plan)."""
+    p = K6.shortcut_launch_plan(M, cs[0], cs[1] if len(cs) > 1 else 0, n,
+                                torch.bfloat16)
+    w = "resident" if p["resident"] else (
+        "streamed by TMA" if p["tma"] else "streamed")
+    return (f"{p['blocks']} blocks x {p['threads']} threads over "
+            f"{p['tiles']} tiles of 128 rows x {p['nw']} columns, {p['kt']} "
+            f"K tiles, W {w}, {p['stages']} stages, "
+            f"{p['smem'] / 1024:.1f} KB")
+
+
+# ragged (rows, piece channels, N): rows off the 128-row tile, K tiles that
+# straddle the pieces (c0 % 64 != 0) with W resident and with W streamed
+# by cp.async, N off the column tile with W resident, streamed by TMA
+K6_RAGGED = ((130, (40, 24), 64), (100, (72, 56), 640), (257, (128, 64), 64),
+             (70, (24,), 200), (143, (64, 96), 328), (100, (64,), 384))
+
+
 def check_shortcut(sites, device, reps, results):
     """K6 at every shortcut site of one InfoDiff and one vanilla UNet
     forward, B=64, against its plain version; times beside torch.addmm over
-    the concatenated pieces."""
+    the concatenated pieces; in bf16 each site's plan and the CUDA-graph
+    device times of K6 and of torch.addmm on inputs rotated past the L2.
+    Then the ragged shapes (``K6_RAGGED``) against the plain version."""
     g = torch.Generator(device=device).manual_seed(21)
     B = SLICE_BATCH["kernels"]
     for tag, dtype in DTYPES.items():
-        ms = plain_ms = lib_ms = 0.0
+        ms = plain_ms = lib_ms = dev_ms = dev_lib = 0.0
         bnd = Bound()
         e = torch.finfo(dtype).bits // 8
         for hh, ww, cs, n in sites:
             M, ctot = B * hh * ww, sum(cs)
-            h = torch.randn(B, hh, ww, n, generator=g, device=device).to(dtype)
-            pieces = [torch.randn(B, hh, ww, c, generator=g, device=device)
-                      .to(dtype) for c in cs]
-            weight = (torch.randn(n, ctot, generator=g, device=device)
-                      / math.sqrt(ctot))
-            bias = 0.1 * torch.randn(n, generator=g, device=device)
-            args = (h, pieces, weight, bias)
-            got = K6.shortcut_fused_cuda(*args)
-            torch.cuda.synchronize()
-            abs_e, rel_e = rel_err(got, K6.shortcut_fused_reference(*args))
             what = f"{hh}x{ww} {list(cs)}->{n}"
-            results.record("shortcut_fused", f"{tag} {what}", abs_e, rel_e,
-                           TOL[tag])
-            del got
+            args = shortcut_inputs((B, hh, ww), cs, n, dtype, g, device)
+            h, pieces, weight, bias = args
+            abs_e, rel_e = check_shortcut_once(f"{tag} {what}", args, results)
             km, pm = paired_ms(lambda: K6.shortcut_fused_cuda(*args),
                                lambda: K6.shortcut_fused_reference(*args),
                                reps)
@@ -1677,14 +1825,63 @@ def check_shortcut(sites, device, reps, results):
                            PEAK[tag])
             at_least(f"K6 {tag} {what}", km, b_ms)
             ms, plain_ms, lib_ms = ms + km, plain_ms + pm, lib_ms + lm
-            print(f"[K6 shortcut] {tag} B={B} {what}: rel err {rel_e:.2e} "
-                  f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms, "
-                  f"bound {b_ms:.4f} ms, torch.addmm {lm:.4f} ms")
+            line = (f"[K6 shortcut] {tag} B={B} {what}: rel err {rel_e:.2e} "
+                    f"(abs {abs_e:.2e}); {km:.4f} ms vs plain {pm:.4f} ms, "
+                    f"bound {b_ms:.4f} ms, torch.addmm {lm:.4f} ms")
+            if dtype == torch.bfloat16:
+                dk = device_ms(f"K6 {what}", lambda h, w, b, *ps:
+                               K6.shortcut_fused_cuda(h, ps, w, b),
+                               (h, weight, bias, *pieces), b_ms)
+                dl = device_ms(f"torch.addmm {what}", torch.addmm,
+                               (hb, cat, wt), b_ms)
+                dev_ms, dev_lib = dev_ms + dk, dev_lib + dl
+                line += (f"; {shortcut_plan_str(M, cs, n)}; device {dk:.4f} "
+                         f"ms against torch.addmm's {dl:.4f}")
+            print(line)
             del h, pieces, cat, hb
+        dev = (f"; device {dev_ms:.4f} ms against torch.addmm's "
+               f"{dev_lib:.4f}" if dtype == torch.bfloat16 else "")
         print(f"[K6 shortcut] {tag}: all {len(sites)} sites once: {ms:.4f} "
               f"ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} ms "
-              f"({bnd.by}), torch.addmm {lib_ms:.4f} ms")
+              f"({bnd.by}), torch.addmm {lib_ms:.4f} ms{dev}")
         results.time("shortcut_fused", tag, ms, plain_ms, bnd, lib_ms)
+        for rows, cs, n in K6_RAGGED:
+            what = f"ragged {rows} rows {list(cs)}->{n}"
+            _, rel_e = check_shortcut_once(
+                f"{tag} {what}",
+                shortcut_inputs((rows,), cs, n, dtype, g, device), results)
+            plan = (f"; {shortcut_plan_str(rows, cs, n)}"
+                    if dtype == torch.bfloat16 else "")
+            print(f"[K6 shortcut] {tag} {what}: rel err {rel_e:.2e}{plan}")
+
+
+def shortcut_inputs(lead, cs, n, dtype, g, device):
+    """K6's arguments: h [*lead, n] and pieces [*lead, c] in ``dtype``, an
+    f32 weight [n, sum(cs)] and bias [n]."""
+    h = torch.randn(*lead, n, generator=g, device=device).to(dtype)
+    pieces = [torch.randn(*lead, c, generator=g, device=device).to(dtype)
+              for c in cs]
+    weight = (torch.randn(n, sum(cs), generator=g, device=device)
+              / math.sqrt(sum(cs)))
+    bias = 0.1 * torch.randn(n, generator=g, device=device)
+    return h, pieces, weight, bias
+
+
+def check_shortcut_once(what, args, results):
+    """K6 on ``args`` against its plain version at the dtype's bar; a weight
+    in h's dtype (the kernel's other load path: an f32 one it rounds
+    itself) must give bitwise the same output. Returns (abs, rel) error."""
+    h, pieces, weight, bias = args
+    got = K6.shortcut_fused_cuda(*args)
+    torch.cuda.synchronize()
+    abs_e, rel_e = rel_err(got, K6.shortcut_fused_reference(*args))
+    tag = "bf16" if h.dtype == torch.bfloat16 else "f32"
+    results.record("shortcut_fused", what, abs_e, rel_e, TOL[tag])
+    if not torch.equal(K6.shortcut_fused_cuda(
+            h, pieces, weight.to(h.dtype), bias), got):
+        raise AssertionError(f"K6 {what}: a {h.dtype} weight gives another "
+                             f"output than f32")
+    return abs_e, rel_e
 
 
 def shortcut_host_us(sites, device, reps=50):

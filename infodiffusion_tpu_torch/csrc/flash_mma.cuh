@@ -1,6 +1,6 @@
 // bf16 tensor-core building blocks of K2's and K2''s two-pass body beyond
 // their resident strip (forward_two_pass; attention.cu), whose fragment
-// helpers K2's strip body and K6 (shortcut_fused.cu) also use: mma.sync
+// helpers K2's strip body also uses: mma.sync
 // m16n8k16 with f32 accumulation and ldmatrix fragment loads from bf16
 // tiles in shared memory. The bf16 flash forwards K3a / K3c and the
 // backward K3b run on Hopper's warpgroup products instead

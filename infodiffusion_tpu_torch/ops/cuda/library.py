@@ -44,9 +44,9 @@ _SIGNATURES = {
     "infodiff_flash_attention": [_P] * 4 + [_I] * 6 + [_P],
     "infodiff_flash_attention_online": [_P] * 4 + [_I] * 6 + [_P],
     "infodiff_flash_attention_bwd": [_P] * 8 + [_I] * 10 + [_P],
-    "infodiff_int8_conv": [_P] * 6 + [_I] * 7 + [_P],
+    "infodiff_int8_conv": [_P] * 6 + [_I] * 13 + [_P],
     "infodiff_qconv": [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 6 + [_P],
-    "infodiff_shortcut_fused": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 3
+    "infodiff_shortcut_fused": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 7
                                + [_P],
     "infodiff_latent_mlp": [_P] * 9 + [_I] * 5 + [_P],
 }

@@ -31,6 +31,7 @@ every call, as the JAX package runs it in XLA at every apply.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Sequence
 
@@ -159,12 +160,101 @@ def int8_conv_epilogue(y: torch.Tensor, scale: Optional[torch.Tensor] = None,
     return v.to(out_dtype or torch.float32)
 
 
-def _weights(kq_hwio: torch.Tensor, cin: int) -> torch.Tensor:
-    """HWIO int8 -> the kernel's [Cout, 9, Cin] (taps dh*3 + dw), with the
-    input channels zero-padded to ``cin``."""
-    w = kq_hwio.permute(3, 0, 1, 2).reshape(kq_hwio.shape[3], 9,
-                                            kq_hwio.shape[2])
-    return F.pad(w, (0, cin - w.shape[2])).contiguous()
+# the int8 conv's launch arithmetic (csrc/int8_conv_wgmma.cuh make_plan)
+_BM = 128              # output pixels a tile
+_SMS = 132             # H100 SXM
+_SMEM_LIMIT = 232448   # bytes of shared memory a block may use
+_MAX_STAGES = 36       # weight stages the kernel's barriers allow
+_BAR_BYTES = 640
+_ALIGN = 128
+_ROW_PAD = 16          # bytes of padding per window row
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int8_conv_cin(c: int) -> int:
+    """The input channels the int8 conv kernel runs at: ``c`` zero-padded
+    to 32, 64 or a multiple of 128 (one weight stage covers up to 128)."""
+    for k in (32, 64):
+        if c <= k:
+            return k
+    return _cdiv(c, 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def int8_conv_launch_plan(B: int, H: int, W: int, cin: int, cout: int,
+                          stride: int) -> dict:
+    """What the int8 conv kernel launches for x [B, H, W, cin] (cin as
+    :func:`int8_conv_cin` pads it) and ``cout`` output channels at
+    ``stride``: the tile (``ipt`` whole images, or ``th`` output rows of
+    ``tw`` columns of one image; at most 128 pixels), the N tile ``n``
+    (Cout padded to 64 / 128 / 256) and its ``nsplit``, the weight stage's
+    input channels ``kp``, the window's ``win_rows`` x ``win_cols``
+    positions an image and ``win_bytes`` (two buffers), the ``w_stage``
+    bytes, ``n_stages`` stages a tile (9 taps x cin / kp), the ring's
+    ``stages`` (all of them where the weights stay ``resident``), ``smem``
+    bytes, ``tiles`` and ``blocks`` (persistent, at most one per SM) of
+    ``threads``. Raises where no plan fits the shared memory. Cached: the
+    dict is shared, so callers read it only."""
+    if stride not in (1, 2) or min(B, H, W, cout) < 1 or \
+            cin != int8_conv_cin(cin):
+        raise ValueError(f"int8 conv takes no plan for B={B} {H}x{W} "
+                         f"Cin={cin} Cout={cout} stride {stride}")
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    rs = cin + _ROW_PAD
+    kp = min(cin, 128)
+    n = 64 if cout <= 64 else 128 if cout <= 128 else 256
+    nsplit = _cdiv(cout, n)
+    if Ho * Wo <= _BM:
+        th, tw, ipt = Ho, Wo, min(B, _BM // (Ho * Wo))
+    else:
+        tw = min(Wo, _BM)
+        th, ipt = _BM // tw, 1
+    w_stage, n_stages = n * kp, 9 * (cin // kp)
+    while True:
+        win_rows, win_cols = (th - 1) * stride + 3, (tw - 1) * stride + 3
+        win_bytes = _cdiv(ipt * win_rows * win_cols * rs, 128) * 128
+        fixed = _ALIGN + 2 * win_bytes + _BAR_BYTES
+        resident = (nsplit == 1 and n_stages <= _MAX_STAGES
+                    and fixed + n_stages * w_stage <= _SMEM_LIMIT)
+        stages = n_stages if resident else next(
+            (s for s in (4, 3, 2) if fixed + s * w_stage <= _SMEM_LIMIT), 0)
+        if stages:
+            break
+        if ipt > 1:
+            ipt = _cdiv(ipt, 2)
+        elif th > 1:
+            th = _cdiv(th, 2)
+        elif tw > 8:
+            tw = _cdiv(tw, 2)
+        else:
+            raise ValueError(f"int8 conv: no tile fits the shared memory at "
+                             f"{H}x{W} Cin={cin} Cout={cout}")
+    groups, row_tiles, col_tiles = _cdiv(B, ipt), _cdiv(Ho, th), _cdiv(Wo, tw)
+    tiles = nsplit * groups * row_tiles * col_tiles
+    return dict(kp=kp, n=n, nsplit=nsplit, ipt=ipt, th=th, tw=tw,
+                win_rows=win_rows, win_cols=win_cols, win_bytes=win_bytes,
+                w_stage=w_stage, n_stages=n_stages, stages=stages,
+                resident=resident, smem=fixed + stages * w_stage,
+                groups=groups, row_tiles=row_tiles, col_tiles=col_tiles,
+                tiles=tiles, blocks=min(tiles, _SMS), threads=384)
+
+
+def int8_conv_weights(kq_hwio: torch.Tensor, cin: int, plan: dict):
+    """HWIO int8 [3, 3, C, Cout] -> the kernel's weight stages: input
+    channels zero-padded to ``cin``, output channels to ``nsplit * n``,
+    laid out [nsplit][9 taps (dh*3 + dw)][cin / kp panels][n / 8][kp / 16]
+    [8][16] (the no-swizzle K-major core matrices wgmma reads, one stage
+    a (tap, panel))."""
+    c, cout = kq_hwio.shape[2], kq_hwio.shape[3]
+    n, kp, nsplit = plan["n"], plan["kp"], plan["nsplit"]
+    w = kq_hwio
+    if cin != c or nsplit * n != cout:
+        w = F.pad(w, (0, nsplit * n - cout, 0, cin - c))
+    w = w.reshape(9, cin // kp, kp // 16, 16, nsplit, n // 8, 8)
+    return w.permute(4, 0, 1, 5, 2, 6, 3).contiguous()
 
 
 def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
@@ -173,9 +263,10 @@ def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
                    partial: Optional[torch.Tensor] = None,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Launch the chainless int8 conv (padding 1) on NHWC int8 ``xq`` and
-    HWIO int8 ``kq``, with the epilogue of :func:`int8_conv_epilogue`.
-    Input channels are zero-padded to a multiple of 32 (exact). Raises on
-    what the kernel does not take."""
+    HWIO int8 ``kq``, with the epilogue of :func:`int8_conv_epilogue`, as
+    :func:`int8_conv_launch_plan` says. Input channels are zero-padded to
+    :func:`int8_conv_cin` (exact). Raises on what the kernel does not
+    take."""
     _lib.check_tensor(xq, "xq", dtypes=(torch.int8,))
     dev = xq.device
     if xq.ndim != 4 or kq.shape[:3] != (3, 3, xq.shape[3]):
@@ -185,10 +276,11 @@ def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
         raise ValueError(f"int8 conv takes stride 1 or 2, got {stride}")
     B, H, W, C = xq.shape
     cout = kq.shape[3]
-    cin = -(-C // 32) * 32
+    cin = int8_conv_cin(C)
+    plan = int8_conv_launch_plan(B, H, W, cin, cout, stride)
     if cin != C:
         xq = F.pad(xq, (0, cin - C))
-    w = _weights(kq, cin)
+    w = int8_conv_weights(kq, cin, plan)
     _lib.check_tensor(w, "kq", dtypes=(torch.int8,), device=dev)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     if scale is None and partial is None and out_dtype is None:
@@ -214,7 +306,8 @@ def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
             bias.data_ptr() if scale is not None else None,
             partial.data_ptr() if partial is not None else None,
             out.data_ptr(), _OUT_CODES[out_dtype], B, H, W, cin, cout,
-            stride, _lib.stream_handle(),
+            stride, plan["ipt"], plan["th"], plan["tw"], plan["stages"],
+            plan["smem"], plan["blocks"], _lib.stream_handle(),
         )
     _lib.check_launch(err, "int8_conv")
     int8_conv_cuda.launches += 1

@@ -31,6 +31,7 @@ dh = dout, dp_i = dout W_i, dW_i = dout^T p_i, db = sum dout.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Sequence
 
@@ -39,6 +40,13 @@ import torch
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
 
 MAX_PIECES = 2
+# the bf16 body's launch arithmetic (csrc/shortcut_fused.cu make_plan)
+_SMS = 132             # H100 SXM
+_SMEM_LIMIT = 232448   # bytes of shared memory a block may use
+_ALIGN = 1024          # the 128-byte swizzle's atoms
+_MAX_STAGES = 4
+_BAR_BYTES = 8 * (2 * _MAX_STAGES + 2)
+_ROWS = 128            # rows a tile
 
 
 def use_fused_shortcut(x: torch.Tensor) -> bool:
@@ -59,6 +67,57 @@ def fused_shortcut_supported(piece_channels: Sequence[int], n: int) -> bool:
     cs = list(piece_channels)
     return (1 <= len(cs) <= MAX_PIECES and n % 8 == 0
             and all(c > 0 and c % 8 == 0 for c in cs))
+
+
+@functools.lru_cache(maxsize=None)
+def shortcut_launch_plan(M: int, c0: int, c1: int, N: int,
+                         dtype: torch.dtype) -> dict:
+    """What K6's bf16 body launches for ``M`` rows, pieces of ``c0`` and
+    ``c1`` channels (``c1`` 0: one piece) and ``N`` outputs, in tiles of
+    128 rows. W stays ``resident`` where a block can hold all of N (up to
+    256) and W fits beside the ring, so each piece row is read once; else
+    the tiles are a GEMM's, 128 rows x 128 columns, W streamed beside the
+    pieces, both by TMA (``tma``) where no 64-channel K tile straddles the
+    pieces. Keys: a block's columns ``nw`` (N padded to 64 / 128 / 256:
+    the W rows it holds) and column tiles ``nsplit``, 64-channel K tiles
+    ``kt``, the ring's ``stages`` of ``stage_bytes``, the A tile / W panel
+    / W / h tile bytes and h's row stride ``h_ld``, ``smem`` bytes,
+    ``tiles`` and ``blocks`` (persistent, at most one per SM) of
+    ``threads``. Raises where no plan fits. Cached: the dict is shared, so
+    callers read it only."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"K6's wgmma body takes bf16, got {dtype}")
+    if not fused_shortcut_supported([c0] + ([c1] if c1 else []), N) or M < 1:
+        raise ValueError(f"K6 takes no plan for M={M} pieces {c0}, {c1} "
+                         f"-> {N}")
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    kt = cdiv(c0 + c1, 64)
+    for resident in (True, False):
+        if resident and N > 256:
+            continue
+        nw = 64 if N <= 64 else 128 if N <= 128 or not resident else 256
+        nsplit = cdiv(N, nw)
+        a_bytes, w_panel = _ROWS * 128, nw * 128
+        w_bytes = kt * w_panel
+        h_ld = N if nsplit == 1 else nw
+        h_bytes = _ROWS * h_ld * 2
+        fixed = _ALIGN + h_bytes + _BAR_BYTES
+        stage = a_bytes + (0 if resident else w_panel)
+        stages = next((s for s in range(_MAX_STAGES, 1, -1)
+                       if fixed + (w_bytes if resident else 0) + s * stage
+                       <= _SMEM_LIMIT), 0)
+        if stages:
+            break
+    else:
+        raise ValueError(f"K6: no plan fits the shared memory for pieces "
+                         f"{c0}, {c1} -> {N}")
+    tiles = cdiv(M, _ROWS) * nsplit
+    return dict(nw=nw, nsplit=nsplit, kt=kt, resident=resident,
+                tma=not resident and c0 % 64 == 0, stages=stages,
+                stage_bytes=stage, a_bytes=a_bytes, w_panel=w_panel,
+                w_bytes=w_bytes, h_ld=h_ld, h_bytes=h_bytes,
+                smem=fixed + (w_bytes if resident else 0) + stages * stage,
+                tiles=tiles, blocks=min(tiles, _SMS), threads=384)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -84,8 +143,10 @@ def shortcut_fused_cuda(h: torch.Tensor, pieces: Sequence[torch.Tensor],
                         weight: torch.Tensor,
                         bias: torch.Tensor) -> torch.Tensor:
     """Launch K6 on CUDA tensors (arguments as in the module docstring;
-    the pieces and the weight are cast to h's dtype). Raises on what the
-    kernel does not take."""
+    the pieces and the weight are cast to h's dtype, except an f32 weight
+    the bf16 plan keeps resident, which the kernel rounds as it loads it),
+    bf16 as :func:`shortcut_launch_plan` says. Raises on what the kernel
+    does not take."""
     pieces = list(pieces)
     _lib.check_tensor(h, "h", dtypes=tuple(_lib.DTYPE_CODES))
     dev, dtype, N = h.device, h.dtype, h.shape[-1]
@@ -93,16 +154,25 @@ def shortcut_fused_cuda(h: torch.Tensor, pieces: Sequence[torch.Tensor],
     if not fused_shortcut_supported(cs, N):
         raise ValueError(f"fused shortcut kernel does not take pieces {cs} "
                          f"-> {N}")
-    rows = [_rows(p.to(dtype)) for p in pieces]
-    for i, p in enumerate(rows):
-        if p.shape[0] != h.numel() // N:
-            raise ValueError(f"piece {i}: {p.shape[0]} rows, h has "
-                             f"{h.numel() // N}")
+    # (casts and copies only where needed: the route is host-bound)
+    rows = [p if p.dtype == dtype else p.to(dtype) for p in pieces]
+    M = h.numel() // N
+    for i, (p, c) in enumerate(zip(rows, cs)):
+        if p.numel() // c != M:
+            raise ValueError(f"piece {i}: {p.numel() // c} rows, h has {M}")
         _lib.check_tensor(p, f"piece {i}", dtypes=(dtype,), device=dev)
-    w = weight.to(dtype).contiguous()
-    _lib.check_tensor(w, "weight", shape=(N, sum(cs)), dtypes=(dtype,),
+    c1 = cs[1] if len(rows) > 1 else 0
+    plan = (shortcut_launch_plan(M, cs[0], c1, N, dtype)
+            if dtype == torch.bfloat16 else dict(stages=0, smem=0, blocks=0))
+    # an f32 weight that stays resident is rounded to bf16 in the kernel
+    w_f32 = plan.get("resident", False) and weight.dtype == torch.float32
+    w = weight if w_f32 or weight.dtype == dtype else weight.to(dtype)
+    w = w.contiguous()
+    _lib.check_tensor(w, "weight", shape=(N, sum(cs)),
+                      dtypes=(torch.float32,) if w_f32 else (dtype,),
                       device=dev)
-    b = bias.to(torch.float32).contiguous()
+    b = bias if bias.dtype == torch.float32 else bias.to(torch.float32)
+    b = b.contiguous()
     _lib.check_tensor(b, "bias", shape=(N,), device=dev)
     out = torch.empty_like(h)
     lib = _lib.library().lib
@@ -110,9 +180,9 @@ def shortcut_fused_cuda(h: torch.Tensor, pieces: Sequence[torch.Tensor],
         err = lib.infodiff_shortcut_fused(
             h.data_ptr(), rows[0].data_ptr(),
             rows[1].data_ptr() if len(rows) > 1 else None,
-            cs[0], cs[1] if len(rows) > 1 else 0, w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), h.numel() // N, N, _lib.DTYPE_CODES[dtype],
-            _lib.stream_handle(),
+            cs[0], c1, w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
+            _lib.DTYPE_CODES[dtype], int(w_f32), plan["stages"],
+            plan["smem"], plan["blocks"], _lib.stream_handle(),
         )
     _lib.check_launch(err, "shortcut_fused")
     shortcut_fused_cuda.launches += 1
