@@ -12,14 +12,17 @@ on the card. Phases, each printing one line or a few, any failure raising:
 2. build: the hand-written kernels in ``infodiffusion_tpu_torch/csrc``
    compiled with nvcc for sm_90a (build time, registers, spills), and
    warpgroup products in the SASS (cuobjdump) of every Hopper body: HGMMA
-   (bf16 wgmma) in each bf16 K3b and K6 kernel, IGMMA (s8) in each int8
-   conv kernel.
+   (bf16 wgmma) in each bf16 K3b, K6 and K5 kernel and each bf16 and int8
+   K4 kernel, IGMMA (s8) in each int8 conv kernel.
 3. kernels: K1 (adagn), K2 (attention) and K4 (latent trajectory) each
    against its plain PyTorch version on the card, at the shapes of the
    flagship CelebA-64 InfoDiff (AuxiliaryUNet ch 64, ch_mult (1,2,2,2),
    attention at level 2, a_dim 256, T 1000), with errors and CUDA-event
-   times of both, and K2's launch (grid, block, shared memory, body,
-   blocks per SM).
+   times of both, K2's launch (grid, block, shared memory, body, blocks
+   per SM), K4's cluster plan and occupancy and its chain floor (19
+   exchanges a step x the exchange round measured on the card); then K4's
+   errors at ragged B (1, 100), at a_dim 32 B=64 and on the DDPM and
+   reverse contracts at S=50 (f32, bf16, int8).
 4. the slice, flagship size, bf16, random weights from a numpy seed:
    ``LatentDiffusionProcess.sampling`` (the full T=1000 latent trajectory,
    K4) then ``InfoDiffusionPipeline.generate(steps=100)`` (K1 and K2 in the
@@ -54,10 +57,10 @@ on the card. Phases, each printing one line or a few, any failure raising:
    (relative L2, max error, the int8 flips counted through the kernel) and
    v2 (bitwise v1) at every distinct quantized conv site of one flagship
    forward at B=128, bf16, and K4's int8 weight stream at B=128 d=256
-   S=1000, each against its plain version with CUDA-event times, the
-   card's bound and, for the int8 conv, its launch plan, cuDNN's bf16 conv
-   as a yardstick and the CUDA-graph device times of both contracts and of
-   cuDNN.
+   S=1000 (with its cluster plan), each against its plain version with
+   CUDA-event times, the card's bound and, for the int8 conv, its launch
+   plan, cuDNN's bf16 conv as a yardstick and the CUDA-graph device times
+   of both contracts and of cuDNN.
 10. the int8 slice, flagship, bf16, B=128:
    ``LatentDiffusionProcess(turbo='int8').sampling`` then
    ``DiffusionProcess(turbo='int8').sampling(num_steps=100)`` on the
@@ -73,12 +76,12 @@ on the card. Phases, each printing one line or a few, any failure raising:
    K6 (fused shortcut) at every shortcut site of one flagship InfoDiff
    forward (13) and one vanilla UNet forward (15) at B=64 (in bf16 with
    its launch plan and CUDA-graph device time against torch.addmm's), and
-   the host time per shortcut call on both routes at the vanilla sites; K5 (one
-   LatentUNet forward) at B=128 d=256; K2 at C=256 (N=256), C=512
-   (N=64) and C=64 (N=64 and 256: the mnist and chairs InfoDiff), B=64,
-   with its launch; K2' at the C=64 shapes (errors; in bf16 also its mean
-   error under a tenth of K2's against w unrounded, which a K2' without
-   its lo product would not be).
+   the host time per shortcut call on both routes at the vanilla sites;
+   K5 (one LatentUNet forward) at B=128 d=256 with its cluster plan; K2 at
+   C=256 (N=256), C=512 (N=64) and C=64 (N=64 and 256: the mnist and
+   chairs InfoDiff), B=64, with its launch; K2' at the C=64 shapes
+   (errors; in bf16 also its mean error under a tenth of K2's against w
+   unrounded, which a K2' without its lo product would not be).
 13. the new paths at full width, bf16, random weights: the flagship
    InfoDiff, the vanilla Diff (UNet ch 64, ch_mult (1,2,4,8), attention at
    level 2) and the VAE (a_dim 256, (1,2,4,8)): two-phase sampling (T=1000,
@@ -209,7 +212,12 @@ from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
     flash_launch_plan,
 )
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import pack_latent_unet_params
-from infodiffusion_tpu_torch.ops.cuda.library import library, library_path
+from infodiffusion_tpu_torch.ops.cuda.library import (
+    check_launch,
+    library,
+    library_path,
+    stream_handle,
+)
 from infodiffusion_tpu_torch.pipelines import InfoDiffusionPipeline
 from infodiffusion_tpu_torch.tools import (
     flash_attn_bench,
@@ -801,6 +809,9 @@ GMMA_BODIES = (
      lambda f: f.startswith("_ZN9flash_bwd") and "cols_kernel" in f),
     ("int8 conv", "IGMMA", lambda f: f.startswith("_ZN10int8_wgmma")),
     ("bf16 K6", "HGMMA", lambda f: "shortcut_wgmma_kernel" in f),
+    ("bf16 K4", "HGMMA", lambda f: "latent_traj_bf16_kernel" in f),
+    ("int8 K4", "HGMMA", lambda f: "latent_traj_int8_kernel" in f),
+    ("bf16 K5", "HGMMA", lambda f: "latent_mlp_bf16_kernel" in f),
 )
 
 
@@ -933,9 +944,10 @@ def check_latent_traj(lat_models, device, reps, results, B=BATCH):
         torch.cuda.synchronize()
         abs_e, rel_e = rel_err(got, K4.latent_trajectory_reference(*args))
         results.record("latent_traj", tag, abs_e, rel_e, TOL["traj_" + tag])
+        plan = latent_plan_str(B, A_DIM, DTYPES[tag], "traj", device)
         if not reps:
             print(f"[K4 latent_traj] {tag} weights, B={B} d={A_DIM} S={T}: "
-                  f"rel err {rel_e:.2e} (abs {abs_e:.2e})")
+                  f"rel err {rel_e:.2e} (abs {abs_e:.2e}); {plan}")
             continue
         km, pm = paired_ms(lambda: K4.latent_trajectory_cuda(*args),
                            lambda: K4.latent_trajectory_reference(*args), reps)
@@ -943,8 +955,89 @@ def check_latent_traj(lat_models, device, reps, results, B=BATCH):
         bnd.add(*latent_traj_work(packed["W"]), PEAK[tag])
         print(f"[K4 latent_traj] {tag} weights, B={BATCH} d={A_DIM} "
               f"S={T}: rel err {rel_e:.2e} (abs {abs_e:.2e}); {km:.2f} ms "
-              f"vs plain {pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by})")
+              f"vs plain {pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by}), "
+              f"{chain_floor_str(T)}; {plan}")
         results.time("latent_traj", tag, km, pm, bnd)
+
+
+# the exchanges in series of one latent step: per hidden layer the
+# statistics and the hidden slice, then the x slice (csrc/latent_common.cuh)
+EXCHANGES_PER_STEP = 2 * 9 + 1
+
+
+def exchange_us(ranks: int, mode: int) -> float:
+    """Microseconds a round of the cluster core's exchange takes in one
+    cluster of ``ranks`` blocks (mode 1: st.async of 8 bytes to every peer,
+    counted on its mbarrier, as a layer's statistics go; mode 0:
+    barrier.cluster), from CUDA events around 1000 and 11000 rounds."""
+    ms = []
+    for rounds in (1000, 11000):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        err = library().lib.infodiff_cluster_exchange_probe(
+            ranks, rounds, mode, stream_handle())
+        end.record()
+        end.synchronize()
+        check_launch(err, "cluster_exchange_probe")
+        ms.append(start.elapsed_time(end))
+    return (ms[1] - ms[0]) / 10000 * 1e3
+
+
+def chain_floor_str(steps: int) -> str:
+    """K4's chain floor: ``steps`` x EXCHANGES_PER_STEP exchanges in series,
+    each at least one exchange round of a 16-block cluster."""
+    st, bar = exchange_us(16, 1), exchange_us(16, 0)
+    return (f"chain floor {steps * EXCHANGES_PER_STEP * st / 1e3:.3f} ms "
+            f"({EXCHANGES_PER_STEP} exchanges a step x {st:.3f} us a "
+            f"st.async round, 16 ranks; barrier.cluster {bar:.3f} us)")
+
+
+def latent_plan_str(B, d, dtype, kernel, device) -> str:
+    """A K4 ("traj") or K5 ("mlp") launch's cluster plan beside the card's
+    co-scheduling (cudaOccupancyMaxActiveClusters)."""
+    p = K5.latent_plan_on(device, B, d, dtype, kernel)
+    return (f"plan {p['clusters']} clusters of {p['ranks']} (card: "
+            f"{p['max_active_clusters']} active), {p['rows']} rows a group, "
+            f"{p['groups']} groups in {p['rounds']} rounds, {p['stages']} "
+            f"stages of {p['stage_bytes']} B, {p['smem']} B shared")
+
+
+def check_latent_traj_shapes(device, results):
+    """K4 off the main path's shape, errors only: ragged batches (1, 100),
+    the a_dim 32 prior at B=64 (S=T), and the DDPM and reverse contracts at
+    S=50, each against its plain version."""
+    g = torch.Generator(device=device).manual_seed(13)
+    runs = [(B, A_DIM, T, dict(deterministic=True)) for B in (1, 100)]
+    runs += [(64, 32, T, dict(deterministic=True))]
+    runs += [(BATCH, A_DIM, 50, dict(deterministic=False)),
+             (BATCH, A_DIM, 52, dict(deterministic=True, reverse=True))]
+    models = {}
+    for B, d, steps, kw in runs:
+        if d not in models:
+            models[d] = init_weights_(Diff(T=T, shape=(1, d, d),
+                                           is_latent=True), 40 + d)
+        sched = make_schedule(1e-5, 1e-2, steps, device)
+        xT = torch.randn(B, d, generator=g, device=device)
+        tags = ("f32", "bf16", "int8") if steps < T else ("f32", "bf16")
+        for tag in tags:
+            wd = torch.bfloat16 if tag == "int8" else DTYPES[tag]
+            packed = pack_latent_unet_params(
+                models[d].to(device).backbone, d, dtype=wd)
+            name = "latent_traj"
+            if tag == "int8":
+                packed = K4.quantize_packed_weights(packed)
+                name = "latent_traj_int8"
+            args = K4.trajectory_inputs(packed, sched, xT, g, **kw)
+            got = K4.latent_trajectory_cuda(*args)
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, K4.latent_trajectory_reference(*args))
+            results.record(name, tag, abs_e, rel_e, TOL["traj_" + tag])
+            contract = ("reverse" if kw.get("reverse") else "ddim"
+                        if kw["deterministic"] else "ddpm")
+            plan = latent_plan_str(B, d, packed["W"].dtype, "traj", device)
+            print(f"[K4 latent_traj] {tag} weights, {contract} B={B} d={d} "
+                  f"S={args[1].shape[0]}: rel err {rel_e:.2e} (abs "
+                  f"{abs_e:.2e}); {plan}")
 
 
 def latent_w_read(d: int, L: int) -> int:
@@ -1523,7 +1616,8 @@ def check_latent_traj_int8(lat, device, results):
     bnd.add(*latent_traj_work(packed["W"]), PEAK["bf16"])
     print(f"[K4 latent_traj] int8 weights, B={BATCH} d={A_DIM} S={T}: rel "
           f"err {rel_e:.2e} (abs {abs_e:.2e}); {km:.2f} ms vs plain "
-          f"{pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by})")
+          f"{pm:.2f} ms, bound {bnd.ms:.3f} ms ({bnd.by}); "
+          f"{latent_plan_str(BATCH, A_DIM, torch.int8, 'traj', device)}")
     results.record("latent_traj_int8", "int8", abs_e, rel_e,
                    TOL["traj_int8"])
     results.time("latent_traj_int8", "bf16", km, pm, bnd)
@@ -1968,7 +2062,8 @@ def check_latent_mlp(lat_models, device, reps, results):
         bnd.add(*latent_mlp_work(packed["W"]), PEAK[tag])
         print(f"[K5 latent_mlp] {tag} weights, B={BATCH} d={A_DIM}, t per "
               f"row: rel err {rel_e:.2e} (abs {abs_e:.2e}); {km:.4f} ms vs "
-              f"plain {pm:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by})")
+              f"plain {pm:.4f} ms, bound {bnd.ms:.4f} ms ({bnd.by}); "
+              f"{latent_plan_str(BATCH, A_DIM, DTYPES[tag], 'mlp', device)}")
         results.record("latent_mlp", tag, abs_e, rel_e, TOL["traj_" + tag])
         results.time("latent_mlp", tag, km, pm, bnd)
 
@@ -2838,6 +2933,7 @@ def main() -> None:
                       for tag, dtype in DTYPES.items()}
         check_latent_traj(lat_models, device, 1, results)
         del lat_models
+        check_latent_traj_shapes(device, results)
         torch.cuda.empty_cache()
     if run(4):
         by_path["generation"] = end_to_end(device, smi)

@@ -5,8 +5,8 @@
 // s = silu(time embedding) of that row's own timestep:
 //     layer i:  z = [h, x] W[i] + B[i]          (layer 0 reads x @ W[0][:d])
 //     i < 9:    c = s Wc[i] + Bc[i];  z *= 1 + c
-//               LayerNorm over the 4d columns (two-pass mean and variance
-//               in f32, eps 1e-5), gamma/beta, SiLU -> h
+//               LayerNorm over the 4d columns (mean and variance in f32,
+//               eps 1e-5), gamma/beta, SiLU -> h
 //     i = 9:    eps = z[:, :d]
 // The products take their inputs rounded to W's dtype (x, h and s) with f32
 // accumulation, as the TPU kernel does.
@@ -19,188 +19,109 @@
 // package. One launch per sampler step: 1000 for a full-grid sample, 998
 // for a reverse encoding.
 //
-// What bounds it: every block streams the W it needs (layer 0's x rows,
-// the last layer's eps columns: 22.2 MB in bf16 at d = 256) and Wc of
-// layers 0-8 (4.7 MB) per forward for a few FMAs per weight per batch
-// row, so, like K4, it is bound by that stream and by issue, from L2 in
-// bf16. The row tiling, the column ownership and the product loop are K4's
-// (latent_common.cuh); the wrapper picks BT so the grid covers the SMs.
+// What bounds it: the W it needs (layer 0's x rows, the last layer's eps
+// columns: 22.1 MB in bf16 at d = 256) and Wc of layers 0-8 (4.7 MB) for a
+// few operations per weight per batch row, read from the L2, plus the
+// chain of 10 layers' exchanges. It runs K4's cluster core
+// (latent_common.cuh) with S = 1: each rank streams its columns of W and
+// of Wc once for its row group, the FiLM product on the same tensor-core
+// path over the s chunks of the panel. Nothing stays on chip across
+// launches.
 //
-// Limits: d <= 1024; BT in {1, 2, 4, 8}; W and Wc f32 or bf16.
+// Limits: d a multiple of 16 up to 1024; W and Wc f32 or bf16.
 #include "latent_common.cuh"
 
 namespace {
 
-using namespace latent_common;
+using latent::Args;
 
-template <typename WT, int BT>
-__global__ void __launch_bounds__(1024)
-    latent_mlp_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                      const WT* __restrict__ W, const WT* __restrict__ Wc,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ bc,
-                      const float* __restrict__ gam,
-                      const float* __restrict__ bet, float* __restrict__ out,
-                      int B, int L, int d) {
-  const int h = 4 * d, win = h + d;
-  extern __shared__ float sm[];
-  float* inp = sm;             // [BT][win] layer input [h, x], rounded to WT
-  float* ss = inp + BT * win;  // [BT][d] s, rounded to WT
-  float* red = ss + BT * d;    // [BT][32]
-  float* stat = red + BT * 32; // [BT]
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * BT;
-  const bool active = tid < d;
-  const int col = 4 * tid;
-
-  for (int i = tid; i < BT * d; i += blockDim.x) {
-    const int r = i / d, c = i % d, row = row0 + r;
-    inp[r * win + h + c] = round_to<WT>(row < B ? x[(size_t)row * d + c] : 0.f);
-    ss[i] = round_to<WT>(row < B ? s[(size_t)row * d + c] : 0.f);
+#define LATENT_MLP_KERNEL(NAME, WT)                                         \
+  template <int G>                                                          \
+  __global__ void __launch_bounds__(latent::kThreads, 1)                    \
+      NAME(const __grid_constant__ Args a,                                  \
+           const __grid_constant__ CUtensorMap tw,                          \
+           const __grid_constant__ CUtensorMap tc) {                        \
+    latent::body<latent::kMlp, WT, G>(a, &tw, &tc);                         \
   }
-  __syncthreads();
 
-  for (int j = 0; j < L; ++j) {
-    const bool last = j == L - 1;
-    const int K = j == 0 ? d : win;
-    const int in_off = j == 0 ? h : 0;
-    const bool work = active && (!last || col < d);
-    float z[BT][4];
-#pragma unroll
-    for (int r = 0; r < BT; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) z[r][c] = 0.f;
-    if (work) {
-      rows_times_columns<WT, BT>(W + (size_t)j * win * h + col, inp, win,
-                                 in_off, K, h, z);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = bias[j * h + col + c];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) z[r][c] += b;
-      }
-    }
-    if (last) {
-      if (work) {
-#pragma unroll
-        for (int r = 0; r < BT; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (row0 + r < B && col + c < d)
-              out[(size_t)(row0 + r) * d + col + c] = z[r][c];
-      }
-      break;
-    }
-    float g[4] = {0.f, 0.f, 0.f, 0.f}, be[4] = {0.f, 0.f, 0.f, 0.f};
-    if (active) {
-      // this layer's FiLM rows, per batch row: c = s Wc[j] + Bc[j]
-      float cz[BT][4];
-#pragma unroll
-      for (int r = 0; r < BT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cz[r][c] = 0.f;
-      rows_times_columns<WT, BT>(Wc + (size_t)j * d * h + col, ss, d, 0, d,
-                                 h, cz);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        g[c] = gam[j * h + col + c];
-        be[c] = bet[j * h + col + c];
-        const float bcc = bc[j * h + col + c];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) z[r][c] *= 1.f + (cz[r][c] + bcc);
-      }
-    }
-    float mean[BT], var[BT];
-#pragma unroll
-    for (int r = 0; r < BT; ++r)
-      mean[r] = z[r][0] + z[r][1] + z[r][2] + z[r][3];
-    block_sum<BT>(mean, red, stat);
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      mean[r] /= (float)h;
-      var[r] = 0.f;
-      if (active) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float t = z[r][c] - mean[r];
-          var[r] = fmaf(t, t, var[r]);
-        }
-      }
-    }
-    block_sum<BT>(var, red, stat);
-    // every thread has left this layer's products: inp may be rewritten
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) {
-        const float rstd = rsqrtf(var[r] / (float)h + kEps);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float t = fmaf((z[r][c] - mean[r]) * rstd, g[c], be[c]);
-          inp[r * win + col + c] = round_to<WT>(t / (1.f + expf(-t)));
-        }
-      }
-    }
-    __syncthreads();
-  }
+LATENT_MLP_KERNEL(latent_mlp_f32_kernel, kF32)
+LATENT_MLP_KERNEL(latent_mlp_bf16_kernel, kBF16)
+
+// the kernel for W's type and G rows
+template <int G>
+auto kernel_for(int dtype) {
+  if constexpr (G > 16)  // f32 takes 8 or 16 rows
+    return latent_mlp_bf16_kernel<G>;
+  else
+    return dtype == kBF16 ? latent_mlp_bf16_kernel<G>
+                          : latent_mlp_f32_kernel<G>;
 }
 
-template <typename WT, int BT>
-int launch(const float* x, const float* s, const void* W, const void* Wc,
-           const float* bias, const float* bc, const float* gam,
-           const float* bet, float* out, int B, int L, int d,
-           cudaStream_t stream) {
-  const int threads = (d + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * (BT * (5 * d) + BT * d + BT * 32 + BT);
-  auto kernel = latent_mlp_kernel<WT, BT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(B + BT - 1) / BT, threads, smem, stream>>>(
-      x, s, static_cast<const WT*>(W), static_cast<const WT*>(Wc), bias, bc,
-      gam, bet, out, B, L, d);
-  return (int)cudaGetLastError();
-}
-
-template <typename WT>
-int dispatch_bt(int bt, const float* x, const float* s, const void* W,
-                const void* Wc, const float* bias, const float* bc,
-                const float* gam, const float* bet, float* out, int B, int L,
-                int d, cudaStream_t stream) {
-  switch (bt) {
-    case 1:
-      return launch<WT, 1>(x, s, W, Wc, bias, bc, gam, bet, out, B, L, d,
-                           stream);
-    case 2:
-      return launch<WT, 2>(x, s, W, Wc, bias, bc, gam, bet, out, B, L, d,
-                           stream);
-    case 4:
-      return launch<WT, 4>(x, s, W, Wc, bias, bc, gam, bet, out, B, L, d,
-                           stream);
-    case 8:
-      return launch<WT, 8>(x, s, W, Wc, bias, bc, gam, bet, out, B, L, d,
-                           stream);
+template <int G>
+int launch_rows(const Args& a, int dtype, const CUtensorMap* maps,
+                cudaStream_t stream) {
+  auto kernel = kernel_for<G>(dtype);
+  static bool ready[2] = {false, false};  // attributes set, per type
+  if (!ready[dtype]) {
+    const int err = latent::prepare(kernel);
+    if (err) return err;
+    ready[dtype] = true;
   }
-  return (int)cudaErrorInvalidValue;
+  return latent::launch(kernel, a, maps, stream);
 }
 
 }  // namespace
 
 // x, s, out: [B, d] f32; W: [L, 5d, 4d] and Wc: [L, d, 4d] of `dtype`
-// (0 f32, 1 bf16); bias, bc, gam, bet: [L, 4d] f32. All contiguous.
-INFODIFF_EXPORT int infodiff_latent_mlp(const float* x, const float* s,
-                                        const void* W, const void* Wc,
-                                        const float* bias, const float* bc,
-                                        const float* gam, const float* bet,
-                                        float* out, int B, int L, int d,
-                                        int bt, int dtype,
-                                        cudaStream_t stream) {
-  if (d < 1 || d > 1024 || L < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16)
-    return dispatch_bt<__nv_bfloat16>(bt, x, s, W, Wc, bias, bc, gam, bet, out,
-                                      B, L, d, stream);
-  if (dtype == kF32)
-    return dispatch_bt<float>(bt, x, s, W, Wc, bias, bc, gam, bet, out, B, L,
-                              d, stream);
+// (0 f32, 1 bf16); bias, bc, gam, bet: [L, 4d] f32; scratch: the plan's
+// scratch_bytes. All contiguous.
+// Launches the caller's plan (latent_launch_plan), which must be this
+// entry's own for (B, d, dtype, sms, max_active).
+INFODIFF_EXPORT int infodiff_latent_mlp(
+    const float* x, const float* s, const void* W, const void* Wc,
+    const float* bias, const float* bc, const float* gam, const float* bet,
+    float* out, void* scratch, int B, int L, int d, int dtype, int sms,
+    int max_active, int ranks, int rows, int clusters, int stages, int smem,
+    cudaStream_t stream) {
+  latent::Args a = {};
+  if (L != latent::kLayers || (dtype != kF32 && dtype != kBF16) ||
+      scratch == nullptr ||
+      !latent::make_plan(latent::kMlp, dtype, B, d, sms, max_active, a.p) ||
+      a.p.ranks != ranks || a.p.rows != rows || a.p.clusters != clusters ||
+      a.p.stages != stages || a.p.smem != smem)
+    return (int)cudaErrorInvalidValue;
+  a.x = x;
+  a.film = s;
+  a.W = W;
+  a.bias = bias;
+  a.bc = bc;
+  a.gam = gam;
+  a.bet = bet;
+  a.out = out;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  a.B = B;
+  a.S = 1;
+  a.d = d;
+  CUtensorMap maps[2] = {};
+  const bool f32 = dtype == kF32;
+  if (!latent::layer_map(&maps[0], W, L, 5 * d, 4 * d, f32) ||
+      !latent::layer_map(&maps[1], Wc, L, d, 4 * d, f32))
+    return (int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 8: return launch_rows<8>(a, dtype, maps, stream);
+    case 16: return launch_rows<16>(a, dtype, maps, stream);
+    case 32: return launch_rows<32>(a, dtype, maps, stream);
+    case 64: return launch_rows<64>(a, dtype, maps, stream);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// *out: clusters of `ranks` K5 blocks of W's `dtype` the card co-schedules
+// (cudaOccupancyMaxActiveClusters at the most shared memory)
+INFODIFF_EXPORT int infodiff_latent_mlp_clusters(int dtype, int ranks,
+                                                 int* out) {
+  if (ranks < 1 || ranks > latent::kMaxRanks ||
+      (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  return latent::max_clusters(kernel_for<8>(dtype), ranks, out);
 }

@@ -1,11 +1,15 @@
 """K5: one LatentUNet forward per launch, a CUDA kernel and its plain
-version; and the packed weights K4 and K5 share.
+version; and what K4 and K5 share: the packed weights and the cluster
+core's launch plan.
 
 Replaces ``infodiffusion_tpu/ops/pallas/latent_mlp.py``
 (``latent_unet_forward_pallas``, ``_kernel``; ``pack_latent_unet_params``,
 ``fused_latent_supported``, ``use_fused_latent``, ``latent_eps_fn``).
-Kernel: ``csrc/latent_mlp.cu``; what bounds it and what its design does
-about that: see the source.
+Kernel: ``csrc/latent_mlp.cu`` on the cluster core of
+``csrc/latent_common.cuh`` (K4's): a thread-block cluster owns a row group
+and each of its ranks streams only its columns of W and Wc, so each weight
+is read once per row group, not once per batch row; see the sources for
+what bounds it and the design.
 
 Layer uniformisation as in the JAX package: weights zero-padded to
 [L, 5d, 4d] in [in, out] layout (layer 0 fills rows :d, layer 9 columns
@@ -24,6 +28,8 @@ leaves it to XLA.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Dict
 
@@ -37,9 +43,23 @@ from infodiffusion_tpu_torch.models.latent_unet import (
 from infodiffusion_tpu_torch.nn.embeddings import timestep_embedding
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
 
+# W dtype codes of csrc/common.cuh
+_W_CODES = {**_lib.DTYPE_CODES, torch.int8: 2}
+
 EPS = 1e-5
 MAX_A_DIM = 1024
-_ROW_TILES = (1, 2, 4, 8)
+# the cluster core's launch arithmetic (csrc/latent_common.cuh make_plan)
+_SMEM_LIMIT = 232448   # bytes of shared memory a block may use
+_ALIGN = 1024          # the 128-byte swizzle's atoms
+_MAX_RANKS = 16        # blocks a cluster (non-portable size)
+_MAX_STAGES = 16
+_BAR_BYTES = 8 * (2 * _MAX_STAGES + 4)
+_F32_PITCH = 68        # floats a row of an f32 panel chunk
+_TILE_BYTES = {torch.float32: 64 * 64 * 4, torch.bfloat16: 64 * 64 * 2,
+               torch.int8: 64 * 64}  # a 64 x 64 K tile of W
+_ROWS = {torch.float32: (8, 16), torch.bfloat16: (8, 16, 32, 64),
+         torch.int8: (8, 16, 32, 64)}
+LATENT_THREADS = 160   # a consumer warpgroup and a producer warp
 
 
 def fused_latent_supported(backbone, a_dim: int) -> bool:
@@ -151,13 +171,127 @@ def latent_unet_forward_reference(x: torch.Tensor, s: torch.Tensor, W, Wc,
         hcur = F.silu(z)
 
 
-def _row_tile(B: int, device) -> int:
-    """Rows per block: the fewest that keep the grid within one wave."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for bt in _ROW_TILES:
-        if -(-B // bt) <= sms:
-            return bt
-    return _ROW_TILES[-1]
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def latent_cluster_ranks(d: int) -> int:
+    """Blocks in one cluster of the core at a_dim ``d``: the fewest units
+    of 64 hidden columns a rank (at most 16 ranks), then the fewest ranks
+    at that."""
+    units = d // 16
+    return _cdiv(units, _cdiv(units, _MAX_RANKS))
+
+
+@functools.lru_cache(maxsize=None)
+def latent_launch_plan(B: int, d: int, w_dtype: torch.dtype, kernel: str,
+                       sms: int, max_active_clusters: int) -> dict:
+    """What the cluster core launches for K4 (``kernel`` "traj") or K5
+    ("mlp") at batch ``B``, a_dim ``d`` and W of ``w_dtype``, on a card of
+    ``sms`` SMs that co-schedules ``max_active_clusters`` clusters of the
+    plan's size (cudaOccupancyMaxActiveClusters).
+
+    A cluster of ``ranks`` blocks owns ``rows`` batch rows (a row group);
+    rank r owns the hidden column units (of 64 columns) ``[r *
+    units_per_rank, ...)`` of ``units`` = 4d / 64 and, for r <
+    ``eps_units`` = ceil(d / 64), the last layer's unit r. ``clusters`` (at
+    most ``max_active_clusters``: all resident at once) walk the
+    ``groups`` row groups in ``rounds``. Rows: among 8, 16, 32, 64 (f32:
+    8, 16) that fit the shared memory with a ring of at least 2 ``stages``,
+    the fewest rounds, then the fewest row groups (each reads W once a
+    step), then the fewest rows. Also: K tiles of 64 (``k_tiles``,
+    ``x_tiles`` of them over x; ``tiles`` a stage of ``stage_bytes``), the
+    panel's ``chunk_bytes`` (64 columns of the group's rows), the
+    exchanges' ``scratch_bytes``, ``smem`` bytes, ``threads``. Raises
+    where no plan fits or the card holds no cluster. Cached: the dict is
+    shared, so callers read it only."""
+    if kernel not in ("traj", "mlp"):
+        raise ValueError(f"kernel is 'traj' (K4) or 'mlp' (K5), got {kernel}")
+    if w_dtype not in _ROWS or (kernel == "mlp" and w_dtype == torch.int8):
+        raise ValueError(f"latent {kernel} kernel takes no {w_dtype} W")
+    check_a_dim(d, f"latent {kernel} kernel")
+    if B < 1:
+        raise ValueError(f"latent {kernel} kernel: batch {B}")
+    units = d // 16
+    per = _cdiv(units, _MAX_RANKS)
+    ranks = _cdiv(units, per)
+    eps_units = _cdiv(d, 64)  # rank r < eps_units owns eps unit r
+    kt_h, kt_x = units, eps_units
+    cmax = min(max_active_clusters, sms // ranks)
+    if cmax < 1:
+        raise ValueError(f"the card co-schedules no cluster of {ranks} "
+                         f"blocks ({max_active_clusters} active, {sms} SMs)")
+    # K tiles a stage: 4 where they divide every layer's K tiles, f32 one
+    tiles = (1 if w_dtype == torch.float32 else 4 if kt_x % 4 == 0
+             else 2 if kt_x % 2 == 0 else 1)
+    stage = tiles * _TILE_BYTES[w_dtype]
+    best = None
+    for G in _ROWS[w_dtype]:
+        chunk = G * _F32_PITCH * 4 if w_dtype == torch.float32 else G * 128
+        zpitch = 64 * per + 4
+        xstate = G * 64 * 4 if kernel == "traj" else 0
+        nparams = 4 if w_dtype == torch.int8 or kernel == "mlp" else 3
+        rest = ((kt_h + 2 * kt_x) * chunk + G * zpitch * 4 + xstate
+                + nparams * NUM_LAYERS * 64 * per * 4 + ranks * G * 8
+                + _BAR_BYTES)
+        stages = min(_MAX_STAGES, (_SMEM_LIMIT - _ALIGN - rest) // stage)
+        if stages < 2:
+            continue
+        groups = _cdiv(B, G)
+        clusters = min(groups, cmax)
+        key = (_cdiv(groups, clusters), groups)
+        if best is None or key < best[0]:
+            best = (key, dict(
+                ranks=ranks, units=units, units_per_rank=per,
+                eps_units=eps_units, rows=G,
+                groups=groups, clusters=clusters, rounds=key[0],
+                k_tiles=kt_h + kt_x, x_tiles=kt_x, chunk_bytes=chunk,
+                tiles=tiles, stage_bytes=stage, stages=stages,
+                scratch_bytes=clusters * ranks * (per + 1) * chunk,
+                smem=_ALIGN + stages * stage + rest, threads=LATENT_THREADS,
+                sms=sms, max_active_clusters=cmax))
+    if best is None:
+        raise ValueError(f"latent {kernel} kernel: no plan fits the shared "
+                         f"memory at d={d} in {w_dtype}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(kernel: str, w_dtype: torch.dtype, ranks: int,
+                         device_index: int) -> int:
+    """cudaOccupancyMaxActiveClusters for ``ranks``-block clusters of the
+    kernel at the most shared memory (one block an SM)."""
+    fn = getattr(_lib.library().lib, f"infodiff_latent_{kernel}_clusters")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(_W_CODES[w_dtype], ranks, ctypes.byref(n))
+    _lib.check_launch(err, f"latent_{kernel}_clusters")
+    return n.value
+
+
+def latent_plan_on(device, B: int, d: int, w_dtype: torch.dtype,
+                   kernel: str) -> dict:
+    """:func:`latent_launch_plan` for the card ``device`` is on."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    active = _max_active_clusters(kernel, w_dtype, latent_cluster_ranks(d),
+                                  index)
+    return latent_launch_plan(B, d, w_dtype, kernel, sms, active)
+
+
+def _plan_args(plan: dict):
+    """The plan as the C entries take it: what it was made from (sms,
+    max_active), then ranks, rows, clusters, stages, smem."""
+    return (plan["sms"], plan["max_active_clusters"], plan["ranks"],
+            plan["rows"], plan["clusters"], plan["stages"], plan["smem"])
+
+
+def check_a_dim(d: int, what: str) -> None:
+    """Raise unless the cluster core takes a_dim ``d``."""
+    if not (16 <= d <= MAX_A_DIM and d % 16 == 0):
+        raise ValueError(f"{what} takes a_dim a multiple of 16 up to "
+                         f"{MAX_A_DIM}, got {d}")
 
 
 def latent_unet_forward_cuda(x, s, W, Wc, bias, bc, gamma,
@@ -167,13 +301,11 @@ def latent_unet_forward_cuda(x, s, W, Wc, bias, bc, gamma,
     f32 = (torch.float32,)
     _lib.check_tensor(x, "x", dtypes=f32)
     B, d = x.shape
-    if not 1 <= d <= MAX_A_DIM:
-        raise ValueError(f"latent MLP kernel takes a_dim <= {MAX_A_DIM}, "
-                         f"got {d}")
     if W.dtype not in _lib.DTYPE_CODES:
         raise ValueError(f"latent MLP kernel takes f32 or bf16 W, got "
                          f"{W.dtype}")
-    L, h = W.shape[0], 4 * d
+    check_a_dim(d, "latent MLP kernel")
+    L, h = NUM_LAYERS, 4 * d
     dev = x.device
     _lib.check_tensor(s, "s", shape=(B, d), dtypes=f32, device=dev)
     _lib.check_tensor(W, "W", shape=(L, h + d, h), device=dev)
@@ -182,14 +314,18 @@ def latent_unet_forward_cuda(x, s, W, Wc, bias, bc, gamma,
     for name, t in (("bias", bias), ("bc", bc), ("gamma", gamma),
                     ("beta", beta)):
         _lib.check_tensor(t, name, shape=(L, h), dtypes=f32, device=dev)
+    plan = latent_plan_on(dev, B, d, W.dtype, "mlp")
     out = torch.empty_like(x)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=dev)
     lib = _lib.library().lib
     with torch.cuda.device(dev):
         err = lib.infodiff_latent_mlp(
             x.data_ptr(), s.data_ptr(), W.data_ptr(), Wc.data_ptr(),
             bias.data_ptr(), bc.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), B, L, d, _row_tile(B, dev),
-            _lib.DTYPE_CODES[W.dtype], _lib.stream_handle(),
+            out.data_ptr(), scratch.data_ptr(), B, L, d,
+            _lib.DTYPE_CODES[W.dtype],
+            *_plan_args(plan),
+            _lib.stream_handle(),
         )
     _lib.check_launch(err, "latent_mlp")
     latent_unet_forward_cuda.launches += 1

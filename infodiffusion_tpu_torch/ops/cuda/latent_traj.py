@@ -5,20 +5,23 @@ Replaces ``infodiffusion_tpu/ops/pallas/latent_traj.py``
 (``latent_trajectory_pallas``, ``_kernel``): the bf16/f32 weight stream and
 the int8 one of the turbo tier (``quantize_packed_weights``: int8 W and a
 per-(layer, column) scale table Wsc, 13.1 MB per step at a_dim 256).
-Kernel: ``csrc/latent_traj.cu``. The plain version runs the same packed
-step as some 40 small PyTorch ops per step, 1000 steps; the kernel runs the
-step loop and the layer loop inside one launch. On the card the kernel is
-bound by streaming the packed weights (26.2 MB in bf16 at a_dim 256) once
-per step per block: from L2 in bf16, from HBM in f32. The wrapper picks the
-rows per block so the grid covers the SMs.
+Kernel: ``csrc/latent_traj.cu`` on the cluster core of
+``csrc/latent_common.cuh``. The plain version runs the same packed step as
+some 40 small PyTorch ops per step, 1000 steps; the kernel runs the step
+loop and the layer loop inside one launch. A thread-block cluster owns a
+row group for the whole trajectory and each of its ranks streams only its
+columns of the packed weights (26.2 MB in bf16 at a_dim 256), so each
+weight is read once per row group per step, from the L2, as the TPU kernel
+reads it once per step for its batch. ``latent_launch_plan`` (in
+``ops/cuda/latent_mlp.py``, shared with K5) says what it launches.
 
 What stays outside the kernel, as plain torch, as in the JAX package: the
 per-step 1 + FiLM rows ``c_all`` (they depend on the timestep only), the
 [S, 3] update coefficients ``coef`` and the pre-drawn noise [S, B, d].
 
 The TPU kernel's Mosaic artifacts (the ``a_dim % 32`` gate and the lane
-padding) are not ported. The CUDA kernel's own limits: a_dim <= 1024, W in
-f32, bf16 or int8 (with Wsc).
+padding) are not ported. The CUDA kernel's own limits: a_dim a multiple of
+16 up to 1024, W in f32, bf16 or int8 (with Wsc).
 """
 
 from __future__ import annotations
@@ -29,18 +32,20 @@ import torch
 import torch.nn.functional as F
 
 from infodiffusion_tpu_torch.diffusion.schedule import DEFAULT_ETA, Schedule
-from infodiffusion_tpu_torch.models.latent_unet import TIME_EMB_CHANNELS
+from infodiffusion_tpu_torch.models.latent_unet import (
+    NUM_LAYERS,
+    TIME_EMB_CHANNELS,
+)
 from infodiffusion_tpu_torch.nn.embeddings import timestep_embedding
 from infodiffusion_tpu_torch.ops.cuda import library as _lib
 from infodiffusion_tpu_torch.ops.cuda.latent_mlp import (
+    _W_CODES,
     EPS,
-    MAX_A_DIM,
-    _row_tile,
+    _plan_args,
+    check_a_dim,
+    latent_plan_on,
 )
 from infodiffusion_tpu_torch.ops.quant import _per_127
-
-# W dtype codes of csrc/latent_traj.cu
-_W_CODES = {**_lib.DTYPE_CODES, torch.int8: 2}
 
 
 def quantize_packed_weights(packed: Dict[str, torch.Tensor]):
@@ -52,6 +57,26 @@ def quantize_packed_weights(packed: Dict[str, torch.Tensor]):
     sc = _per_127(W.abs().amax(dim=1))
     Wq = torch.clamp(torch.round(W / sc[:, None, :]), -127.0, 127.0)
     return {**packed, "W": Wq.to(torch.int8), "Wsc": sc}
+
+
+def latent_int8_tiles(W: torch.Tensor) -> torch.Tensor:
+    """K4's int8 weight stream as the kernel reads it: W int8 [L, 5d, 4d]
+    (rows padded with zeros to 64 kt, kt = 4d / 64 + ceil(d / 64)) as
+    [L, d / 16, kt, 64, 64] tiles, one per (layer, 64-column unit, 64-row K
+    tile), each a contiguous 4 KB bulk copy: row m of a tile is output
+    column 64 u + m, and its 64 bytes are ordered so that the consumer
+    thread t of a warp loads its A fragments of the four k16 steps with one
+    16-byte load: byte 16 t + 4 kk + 2 hh + e holds k = 16 kk + 8 hh + 2 t
+    + e."""
+    L, win, h = W.shape
+    d = win - h
+    kt = h // 64 + -(-d // 64)
+    Wp = torch.zeros((L, kt * 64, h), dtype=torch.int8, device=W.device)
+    Wp[:, :win] = W
+    # k = 64 T + 16 kk + 8 hh + 2 t + e, column = 64 u + m
+    t = Wp.view(L, kt, 4, 2, 4, 2, h // 64, 64)
+    return t.permute(0, 6, 1, 7, 4, 2, 3, 5).contiguous().view(
+        L, h // 64, kt, 64, 64)
 
 
 def sampling_coefficients(sched: Schedule, idxs: torch.Tensor,
@@ -149,10 +174,8 @@ def latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,
     if (W.dtype == torch.int8) != (Wsc is not None):
         raise ValueError("int8 W needs its scale table Wsc, and only int8 W "
                          "takes one")
-    if not 1 <= d <= MAX_A_DIM:
-        raise ValueError(f"latent trajectory kernel takes a_dim <= "
-                         f"{MAX_A_DIM}, got {d}")
-    L, h = W.shape[0], 4 * d
+    check_a_dim(d, "latent trajectory kernel")
+    L, h = NUM_LAYERS, 4 * d
     S = coef.shape[0]
     f32 = (torch.float32,)
     dev = xT.device
@@ -165,15 +188,20 @@ def latent_trajectory_cuda(xT, coef, W, c_all, noises, bias, gamma,
         _lib.check_tensor(t, name, shape=(L, h), dtypes=f32, device=dev)
     if Wsc is not None:
         _lib.check_tensor(Wsc, "Wsc", shape=(L, h), dtypes=f32, device=dev)
+    plan = latent_plan_on(dev, B, d, W.dtype, "traj")
+    stream = latent_int8_tiles(W) if W.dtype == torch.int8 else W
     out = torch.empty_like(xT)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=dev)
     lib = _lib.library().lib
     with torch.cuda.device(dev):
         err = lib.infodiff_latent_traj(
-            xT.data_ptr(), coef.data_ptr(), W.data_ptr(), c_all.data_ptr(),
-            noises.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), Wsc.data_ptr() if Wsc is not None else None,
-            out.data_ptr(), B, S, L, d, _row_tile(B, dev),
-            _W_CODES[W.dtype], _lib.stream_handle(),
+            xT.data_ptr(), coef.data_ptr(), stream.data_ptr(),
+            c_all.data_ptr(), noises.data_ptr(), bias.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(),
+            Wsc.data_ptr() if Wsc is not None else None, out.data_ptr(),
+            scratch.data_ptr(), B, S, L, d, _W_CODES[W.dtype],
+            *_plan_args(plan),
+            _lib.stream_handle(),
         )
     _lib.check_launch(err, "latent_traj")
     counter = (latent_trajectory_int8_cuda if Wsc is not None

@@ -37,7 +37,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "infodiff_adagn": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "infodiff_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "infodiff_latent_traj": [_P] * 10 + [_I] * 6 + [_P],
+    "infodiff_latent_traj": [_P] * 11 + [_I] * 12 + [_P],
+    "infodiff_latent_traj_clusters": [_I, _I, _P],
+    "infodiff_cluster_exchange_probe": [_I, _I, _I, _P],
     "infodiff_adagn_bwd": [_P] * 13 + [_I] * 10 + [_P],
     "infodiff_attention_tiled": [_P] * 4 + [_I] * 5 + [_P],
     "infodiff_attention_plan": [_I] * 5 + [_P],
@@ -48,7 +50,8 @@ _SIGNATURES = {
     "infodiff_qconv": [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 6 + [_P],
     "infodiff_shortcut_fused": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 7
                                + [_P],
-    "infodiff_latent_mlp": [_P] * 9 + [_I] * 5 + [_P],
+    "infodiff_latent_mlp": [_P] * 10 + [_I] * 11 + [_P],
+    "infodiff_latent_mlp_clusters": [_I, _I, _P],
 }
 
 # dtype codes of csrc/common.cuh
