@@ -20,9 +20,16 @@ on the card. Phases, each printing one line or a few, any failure raising:
    attention at level 2, a_dim 256, T 1000), with errors and CUDA-event
    times of both, K2's launch (grid, block, shared memory, body, blocks
    per SM), K4's cluster plan and occupancy and its chain floor (19
-   exchanges a step x the exchange round measured on the card); then K4's
-   errors at ragged B (1, 100), at a_dim 32 B=64 and on the DDPM and
-   reverse contracts at S=50 (f32, bf16, int8).
+   exchanges a step x the exchange round measured on the card); K1's
+   launch plan per site (body, ranks, rows, threads, shared memory), each
+   K1 call twice (bitwise the same), its CUDA-graph device time and, at
+   the K=0 sites, F.group_norm's on the channels_last NCHW view (and the
+   kernels it runs); the C entries of K1 and its backward refusing a plan
+   not their own; the host us per K1 call (tools/adagn_rate.py); the
+   latent sampler at a_dim 20 (f32, B=64) on its "torch" route, no K4 or
+   K5 launch, against the CPU's same route, and the a_dim 256 prior on K4
+   once a trajectory; then K4's errors at ragged B (1, 100), at a_dim 32
+   B=64 and on the DDPM and reverse contracts at S=50 (f32, bf16, int8).
 4. the slice, flagship size, bf16, random weights from a numpy seed:
    ``LatentDiffusionProcess.sampling`` (the full T=1000 latent trajectory,
    K4) then ``InfoDiffusionPipeline.generate(steps=100)`` (K1 and K2 in the
@@ -33,7 +40,8 @@ on the card. Phases, each printing one line or a few, any failure raising:
    against the plain versions on the CPU.
 6. training kernels: the K1 backward at every GroupNorm site of one
    training forward (backbone and Encoder; 64px at B=128 and 128px at
-   B=64), K3a (flash forward) at N=1024 B=64 (in bf16 with its launch
+   B=64), with its plan, a bitwise repeat, its device time and, at the K=0
+   sites, the event time of the autograd backward of F.group_norm; K3a (flash forward) at N=1024 B=64 (in bf16 with its launch
    plan and device time against SDPA's) and K3b (flash backward) at
    N=1024 B=64, N=256 B=128 and N=64 B=128 on both contracts (the Pallas
    backward's and the dense attention's autodiff, the main path's first),
@@ -112,15 +120,17 @@ on the card. Phases, each printing one line or a few, any failure raising:
    device time on both contracts against SDPA's backward;
    K2 and K2' at [2,4096,128], beyond the resident strip (two passes); K2'
    (all f32) at [128,256,128] tb=8, its bf16 bound at the bf16 peak with
-   its three products (q k^T, PV on w's hi and lo parts); then K1 (B=8 and 4), its backward (B=4)
-   and K4 (B=8) at the 512px paths' shapes, errors only.
+   its three products (q k^T, PV on w's hi and lo parts); then K1 (B=8 and
+   4) and its backward (B=4) at the 512px paths' shapes, timed as in
+   phases 3 and 6 (not in the kernels line), and K4 (B=8), errors only.
 16. the 512px paths, bf16, random weights: bench.py's InfoDiff at
    INFODIFF_BENCH_SIZE=512 (latents T=1000 then DDIM-100 at B=8; encode
    B=8; make_train_step B=4, 1 + 2 steps), the vanilla Diff and the VAE
    training at 64px (B=64, 1 + 3), the vanilla UNet's DDIM-2 at 256px and
    512px (K3a and K3c at C=256/512), and both attention tools at reduced
    reps: rates, peak memory, exact launch counts per kernel and C (and
-   K3b's per contract).
+   K3b's per contract); each profile also sums K1's family (the adagn
+   kernels, forward and backward).
 17. card against CPU, f32: the 64px InfoDiff DDIM-10 at B=2 with the
    online route forced (the port's plan limit set in-process), one 512px
    InfoDiff forward at B=1 on the real route, the vanilla Diff's and the
@@ -136,9 +146,10 @@ on the card. Phases, each printing one line or a few, any failure raising:
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
-Every time is held to its bound: an event time, or a device time (K2,
-K3a, K3b, K3c and SDPA, from a CUDA graph of calls on copies of the inputs that fill the L2
-twice over, whose replay must write every output), below the bound fails.
+Every time is held to its bound: an event time, or a device time (K1,
+K1-bwd, K2, K3a, K3b, K3c, SDPA and F.group_norm, from a CUDA graph of
+calls on copies of the inputs that fill the L2 twice over, whose replay
+must write every output), below the bound fails.
 
 The line before the last is one JSON object with each kernel's launches
 (summed over the counted runs of the main paths, and per path), error,
@@ -150,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import functools
 import json
@@ -173,15 +185,14 @@ from infodiffusion_tpu_torch.diffusion.samplers import (
 )
 from infodiffusion_tpu_torch.diffusion.schedule import make_schedule
 from infodiffusion_tpu_torch.models.wrappers import Diff, InfoDiff, build_model
-from infodiffusion_tpu_torch.nn.attention import _GN
 from infodiffusion_tpu_torch.nn.blocks import (
     Conv3,
     PieceConv3,
     ShortcutDense,
     _AffineChain,
-    _GNParams,
 )
 from infodiffusion_tpu_torch.ops import quant as Q
+from infodiffusion_tpu_torch.ops.cuda import adagn as K1
 from infodiffusion_tpu_torch.ops.cuda import latent_mlp as K5
 from infodiffusion_tpu_torch.ops.cuda import latent_traj as K4
 from infodiffusion_tpu_torch.ops.cuda import qconv as K7
@@ -190,6 +201,7 @@ from infodiffusion_tpu_torch.ops.cuda.adagn import (
     adagn_bwd_cuda,
     adagn_bwd_reference,
     adagn_cuda,
+    adagn_plan_on,
     adagn_reference,
 )
 from infodiffusion_tpu_torch.ops.cuda import flash_attention as K3
@@ -220,10 +232,13 @@ from infodiffusion_tpu_torch.ops.cuda.library import (
 )
 from infodiffusion_tpu_torch.pipelines import InfoDiffusionPipeline
 from infodiffusion_tpu_torch.tools import (
+    adagn_rate,
     flash_attn_bench,
     microbench_attention,
     time_ms,
 )
+from infodiffusion_tpu_torch.tools.adagn_rate import films_of
+from infodiffusion_tpu_torch.tools.adagn_rate import inputs as adagn_inputs
 from infodiffusion_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
@@ -835,68 +850,173 @@ def gmma_counts(lib_path) -> dict:
     return counts
 
 
-def adagn_sites(model, run):
-    """(HW, C, K) of every GroupNorm site that ``run()``, one forward of
-    ``model``, hits."""
-    sites = set()
-
-    def hook(mod, args, kwargs):
-        x = args[0]
-        if isinstance(mod, _GN):  # NHWC
-            hw, c = x.shape[1] * x.shape[2], x.shape[3]
-        else:                     # NCHW, or an up block's skip-concat pieces
-            pieces = x if isinstance(x, (tuple, list)) else [x]
-            hw = pieces[0].shape[2] * pieces[0].shape[3]
-            c = sum(p.shape[1] for p in pieces)
-        sites.add((hw, c, len(kwargs.get("films", ()))))
-
-    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in model.modules() if isinstance(m, (_GN, _GNParams))]
-    with torch.no_grad():
-        run()
-    for h in handles:
-        h.remove()
-    return sorted(sites)
+def adagn_plan_str(B, hw, c, k, dtype, device, backward=False) -> str:
+    """K1's (``backward``: its backward's) launch plan at a site."""
+    p = adagn_plan_on(device, B, hw, c, k, dtype, backward=backward)
+    where = (f"{p['ranks']} rank{'s' if p['ranks'] > 1 else ''} x "
+             f"{p['rows']} rows" if p["body"] == "resident"
+             else f"{p['splits']} splits x {p['rows']} rows")
+    return (f"{p['body']} {where}, {p['threads']} threads, {p['smem']} B "
+            f"shared")
 
 
-def check_adagn(sites, device, reps, results, B=BATCH):
-    """K1 at every (HW, C, K) of ``sites`` at batch ``B``; ``reps=0``
-    checks the errors only and leaves the kernel line's times as they
-    are."""
+def as_nchw(x):
+    """x [B, HW, C] as the channels_last NCHW tensor [B, C, HW, 1] (a
+    view) that torch.nn.functional.group_norm takes."""
+    return x.permute(0, 2, 1).unsqueeze(-1)
+
+
+def group_norm_kernels(x, gamma, beta) -> str:
+    """The device kernels one ``F.group_norm`` call on the channels_last
+    view of x runs (torch.profiler): whether it copies x first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gamma, beta = gamma.to(x.dtype), beta.to(x.dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.group_norm(as_nchw(x), 32, gamma, beta)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    return "; ".join(n[:60] for n in names)
+
+
+def check_adagn(sites, device, reps, results, B=BATCH, line=True):
+    """K1 at every (HW, C, K) of ``sites`` at batch ``B``, each against its
+    plain version, each twice (bitwise the same); with ``reps``, CUDA-event
+    ms of both and in bf16 the plan, the CUDA-graph device ms and, at the
+    K=0 sites, F.group_norm's on the channels_last view, summed into the
+    kernels line where ``line``. ``reps=0`` checks the errors only."""
     g = torch.Generator(device=device).manual_seed(1)
     for tag, dtype in DTYPES.items():
-        ms = plain_ms = 0.0
+        ms = plain_ms = dev_ms = gn_ms = gn_dev = k0_ms = k0_dev = 0.0
+        last_k0 = None
         bnd = Bound()
         e = torch.finfo(dtype).bits // 8
         for hw, c, k in sites:
-            bnd.add(8 * B * hw * c, (2 * B * hw * c + 2 * k * B * c) * e
-                    + 8 * c, PEAK["f32"])
-            x = (torch.randn(B, hw, c, generator=g, device=device) * 2 + 0.5
-                 ).to(dtype)
-            gamma = 1 + 0.1 * torch.randn(c, generator=g, device=device)
-            beta = 0.1 * torch.randn(c, generator=g, device=device)
-            films = [tuple(torch.randn(B, c, generator=g, device=device)
-                           .to(dtype) for _ in range(2)) for _ in range(k)]
-            args = (x, 32, gamma, beta, films)
+            bound = bnd.add(8 * B * hw * c, (2 * B * hw * c + 2 * k * B * c)
+                            * e + 8 * c, PEAK["f32"])
+            x, gamma, beta, proj = adagn_inputs(B, hw, c, k, g, device, dtype)
+            args = (x, 32, gamma, beta, films_of(proj))
             got = adagn_cuda(*args)
+            again = adagn_cuda(*args)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 {tag} B={B} HW={hw} C={c} K={k}: "
+                                     f"two calls differ")
             abs_e, rel_e = rel_err(got, adagn_reference(*args))
-            del got
-            line = (f"[K1 adagn] {tag} B={B} HW={hw} C={c} K={k}: rel err "
-                    f"{rel_e:.2e} (abs {abs_e:.2e})")
+            del got, again
+            line_ = (f"[K1 adagn] {tag} B={B} HW={hw} C={c} K={k}: rel err "
+                     f"{rel_e:.2e} (abs {abs_e:.2e}), bitwise repeatable; "
+                     f"{adagn_plan_str(B, hw, c, k, dtype, device)}")
             if reps:
                 km, pm = paired_ms(lambda: adagn_cuda(*args),
                                    lambda: adagn_reference(*args), reps)
                 ms, plain_ms = ms + km, plain_ms + pm
-                line += f"; {km:.4f} ms vs plain {pm:.4f} ms"
-            print(line)
+                line_ += f"; {km:.4f} ms vs plain {pm:.4f} ms"
+            if reps and dtype == torch.bfloat16:
+                dm = device_ms(f"K1 HW={hw} C={c} K={k}",
+                               lambda x, gm, bt, *pr: adagn_cuda(
+                                   x, 32, gm, bt, films_of(pr)),
+                               (x, gamma, beta, *proj), bound)
+                dev_ms += dm
+                line_ += f", device {dm:.4f} ms, bound {bound:.4f} ms"
+                if k == 0:
+                    gm_, bt_ = gamma.to(dtype), beta.to(dtype)
+                    lm = cuda_ms(lambda: F.group_norm(as_nchw(x), 32, gm_,
+                                                      bt_), reps)
+                    ld = device_ms(f"F.group_norm HW={hw} C={c}",
+                                   lambda x, gm, bt: F.group_norm(
+                                       as_nchw(x), 32, gm, bt),
+                                   (x, gm_, bt_), bound)
+                    gn_ms, gn_dev = gn_ms + lm, gn_dev + ld
+                    k0_ms, k0_dev = k0_ms + km, k0_dev + dm
+                    last_k0 = (x, gamma, beta)
+                    line_ += (f"; F.group_norm {lm:.4f} ms, device "
+                              f"{ld:.4f} ms")
+            print(line_)
             results.record("adagn", tag, abs_e, rel_e, TOL[tag])
+            del x, proj, args
         if not reps:
             continue
-        print(f"[K1 adagn] {tag}: all {len(sites)} sites, one call each: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
-              f"ms ({bnd.by})")
-        results.time("adagn", tag, ms, plain_ms, bnd)
+        dev = f", device {dev_ms:.4f} ms" if dev_ms else ""
+        print(f"[K1 adagn] {tag} B={B}: all {len(sites)} sites, one call "
+              f"each: {ms:.4f} ms{dev} vs plain {plain_ms:.4f} ms, bound "
+              f"{bnd.ms:.4f} ms ({bnd.by})")
+        if gn_ms:
+            kernels = (f"; its kernels at the last K=0 site: "
+                       f"{group_norm_kernels(*last_k0)}" if line else "")
+            print(f"[K1 adagn] {tag} B={B}, the K=0 sites: K1 {k0_ms:.4f} ms, "
+                  f"device {k0_dev:.4f}; F.group_norm (channels_last NCHW "
+                  f"view) {gn_ms:.4f} ms, device {gn_dev:.4f}{kernels}")
+        del last_k0
+        if line:
+            results.time("adagn", tag, ms, plain_ms, bnd)
+        torch.cuda.empty_cache()
+
+
+def check_latent_route(device):
+    """The latent sampler where the cluster core does not take a_dim: at
+    a_dim 20, f32, B=64, T=1000 it takes the "torch" route (the samplers
+    over the model's own forward, as JAX's XLA scan), launches neither K4
+    nor K5, and agrees with the CPU's same route, same weights and draws;
+    the flagship prior (a_dim 256, bf16) stays on K4, one launch a
+    trajectory."""
+    d, n = 20, 64
+    cfg = Config(a_dim=d, diffusion_steps=T, deterministic=True)
+    rng = np.random.RandomState(50)
+    xT = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    noises = torch.from_numpy(rng.randn(T, n, d).astype(np.float32))
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        lat = init_weights_(Diff(T=T, shape=(1, d, d), is_latent=True),
+                            60).to(dev)
+        proc = LatentDiffusionProcess(cfg, lat)
+        if proc.route != "torch":
+            raise AssertionError(f"a_dim {d}: route {proc.route}")
+        out, dt, launches = timed(lambda: proc.sampling(
+            xT=xT.to(dev), noises=noises.to(dev)))
+        if dev.type == "cuda":
+            expect(f"latent a_dim {d}", launches,
+                   {"latent_traj": 0, "latent_mlp": 0})
+            rate = n / dt
+        outs[dev.type] = out
+    if tuple(outs["cuda"].shape) != (n, d):
+        raise AssertionError(f"latents {tuple(outs['cuda'].shape)}")
+    abs_e, rel_e = rel_err(outs["cuda"], outs["cpu"])
+    if not rel_e <= TOL["slice"]:
+        raise AssertionError(f"latent a_dim {d}, card vs CPU: {rel_e:.3e}")
+    fcfg, _, lat = flagship(torch.bfloat16, device)
+    proc = LatentDiffusionProcess(fcfg, lat)
+    _, _, launches = timed(lambda: proc.sampling(
+        torch.Generator(device=device).manual_seed(51), sampling_number=16))
+    expect(f"latent a_dim {A_DIM}", launches, {"latent_traj": 1})
+    print(f"[latent route] a_dim {d} f32 B={n} T={T}: route 'torch' "
+          f"({rate:.2f} latents/s), no K4 or K5 launch, finite, card vs CPU rel err "
+          f"{rel_e:.2e} (abs {abs_e:.2e}, bar {TOL['slice']:.0e}); a_dim "
+          f"{A_DIM} bf16: route '{proc.route}', K4 once a trajectory")
+
+
+def check_foreign_plans(device):
+    """The C entries of K1 and its backward refuse a plan that is not their
+    own (here: the right one with twice the ranks), launching nothing."""
+    lib = library().lib
+    B, hw, c = 2, 4096, 64
+    x = torch.zeros(B, hw, c, device=device)
+    for name, backward, pointers in (("infodiff_adagn", False, 10),
+                                     ("infodiff_adagn_bwd", True, 15)):
+        plan, _, ints = K1._config(device.index, B, hw, c, 32, 0,
+                                   torch.float32, (0,) * 4, 0, backward)
+        bad = (ctypes.c_int * len(ints))(*ints)
+        bad[15] = 2 * plan["ranks"]  # the config's ranks
+        err = getattr(lib, name)(*[x.data_ptr()] * pointers,
+                                 ctypes.addressof(bad), stream_handle())
+        torch.cuda.synchronize()
+        if err == 0:
+            raise AssertionError(f"{name} took a plan that is not its own")
+    print("[K1 adagn] the C entries refuse a foreign plan (forward and "
+          "backward)")
 
 
 def check_attention(device, reps, results):
@@ -1069,7 +1189,7 @@ def loss_sites(size, device):
     model = train_model(torch.float32, device, size)
     x = torch.zeros(1, size, size, 3, device=device)
     draws = zero_draws(1, size, device)
-    return adagn_sites(model, lambda: model.loss_fn(
+    return adagn_rate.gn_sites(model, lambda: model.loss_fn(
         x, deterministic=True, **draws))
 
 
@@ -1079,33 +1199,40 @@ def train_sites(device):
             for size, batch, _ in TRAIN_RUNS}
 
 
-def check_adagn_bwd(sites_by_size, device, reps, results):
-    """The K1 backward at every site, per {size: (batch, sites)};
-    ``reps=0`` checks the errors only and leaves the kernel line's times
-    as they are."""
+def check_adagn_bwd(sites_by_size, device, reps, results, line=True):
+    """The K1 backward at every site, per {size: (batch, sites)}, against
+    its plain version, each twice (bitwise the same); with ``reps``,
+    CUDA-event ms of both and in bf16 the plan, the CUDA-graph device ms
+    and, at the K=0 sites, the event ms of the autograd backward of
+    F.group_norm on the channels_last view (its forward and backward less
+    its forward), summed into the kernels line where ``line``. ``reps=0``
+    checks the errors only."""
     g = torch.Generator(device=device).manual_seed(4)
     names = ("dx", "dgamma", "dbeta")
     for tag, dtype in DTYPES.items():
-        ms = plain_ms = 0.0
+        ms = plain_ms = dev_ms = gn_ms = k0_ms = k0_dev = 0.0
         n = 0
         bnd = Bound()
         e = torch.finfo(dtype).bits // 8
         for size, (B, sites) in sites_by_size.items():
             for hw, c, k in sites:
-                bnd.add(20 * B * hw * c, 3 * B * hw * c * e
-                        + 4 * k * B * c * e + 16 * c, PEAK["f32"])
-                x = (torch.randn(B, hw, c, generator=g, device=device) * 2
-                     + 0.5).to(dtype)
+                bound = bnd.add(20 * B * hw * c, 3 * B * hw * c * e
+                                + 4 * k * B * c * e + 16 * c, PEAK["f32"])
+                x, gamma, beta, proj = adagn_inputs(B, hw, c, k, g, device,
+                                                    dtype)
                 dy = torch.randn(B, hw, c, generator=g, device=device).to(dtype)
-                gamma = 1 + 0.1 * torch.randn(c, generator=g, device=device)
-                beta = 0.1 * torch.randn(c, generator=g, device=device)
-                films = [tuple(torch.randn(B, c, generator=g, device=device)
-                               .to(dtype) for _ in range(2)) for _ in range(k)]
+                films = films_of(proj)
                 _, stats = adagn_cuda(x, 32, gamma, beta, films,
                                       return_stats=True)
                 args = (x, dy, 32, gamma, beta, films)
                 got = adagn_bwd_cuda(*args, stats)
+                again = adagn_bwd_cuda(*args, stats)
                 torch.cuda.synchronize()
+                flat = lambda r: [*r[:3], *(t for p in r[3] for t in p)]  # noqa: E731
+                if not all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                             flat(again))):
+                    raise AssertionError(f"K1 bwd {tag} {size}px HW={hw} "
+                                         f"C={c} K={k}: two calls differ")
                 want = adagn_bwd_reference(*args)
                 outs = list(zip(names, got[:3], want[:3])) + [
                     (f"d{w}{j}", a, b) for j, (gp, wp) in
@@ -1117,24 +1244,60 @@ def check_adagn_bwd(sites_by_size, device, reps, results):
                     results.record("adagn_bwd", f"{tag} {what}", abs_e, rel_e,
                                    TOL[tag])
                     worst = max(worst, rel_e)
-                del got, want, outs
-                line = (f"[K1 bwd] {tag} {size}px B={B} HW={hw} C={c} K={k}: "
-                        f"worst rel err {worst:.2e} over dx, dgamma, dbeta, "
-                        f"dfilms")
+                del got, again, want, outs
+                line_ = (f"[K1 bwd] {tag} {size}px B={B} HW={hw} C={c} K={k}: "
+                         f"worst rel err {worst:.2e} over dx, dgamma, dbeta, "
+                         f"dfilms, bitwise repeatable; "
+                         f"{adagn_plan_str(B, hw, c, k, dtype, device, True)}")
                 if reps:
                     km, pm = paired_ms(lambda: adagn_bwd_cuda(*args, stats),
                                        lambda: adagn_bwd_reference(*args),
                                        reps)
                     ms, plain_ms, n = ms + km, plain_ms + pm, n + 1
-                    line += f"; {km:.4f} ms vs plain {pm:.4f} ms"
-                print(line)
-                del x, dy, stats, args
+                    line_ += f"; {km:.4f} ms vs plain {pm:.4f} ms"
+                if reps and dtype == torch.bfloat16:
+                    dm = device_ms(
+                        f"K1 bwd {size}px HW={hw} C={c} K={k}",
+                        lambda x, dy, st, gm, bt, *pr: adagn_bwd_cuda(
+                            x, dy, 32, gm, bt, films_of(pr), st)[:3],
+                        (x, dy, stats, gamma, beta, *proj), bound)
+                    dev_ms += dm
+                    line_ += f", device {dm:.4f} ms, bound {bound:.4f} ms"
+                    if k == 0:
+                        lm = group_norm_bwd_ms(x, dy, gamma, beta, reps)
+                        gn_ms, k0_ms, k0_dev = gn_ms + lm, k0_ms + km, \
+                            k0_dev + dm
+                        line_ += f"; autograd of F.group_norm {lm:.4f} ms"
+                print(line_)
+                del x, dy, stats, args, proj, films
+            torch.cuda.empty_cache()
         if not reps:
             continue
-        print(f"[K1 bwd] {tag}: all {n} training sites, one call each: "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} "
-              f"ms ({bnd.by})")
-        results.time("adagn_bwd", tag, ms, plain_ms, bnd)
+        dev = f", device {dev_ms:.4f} ms" if dev_ms else ""
+        print(f"[K1 bwd] {tag}: all {n} sites, one call each: {ms:.4f} ms"
+              f"{dev} vs plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} ms "
+              f"({bnd.by})")
+        if gn_ms:
+            print(f"[K1 bwd] {tag}, the K=0 sites: K1 backward {k0_ms:.4f} "
+                  f"ms, device {k0_dev:.4f}; the autograd backward of "
+                  f"F.group_norm (channels_last NCHW view) {gn_ms:.4f} ms")
+        if line:
+            results.time("adagn_bwd", tag, ms, plain_ms, bnd)
+
+
+def group_norm_bwd_ms(x, dy, gamma, beta, reps) -> float:
+    """CUDA-event ms of the backward of F.group_norm on the channels_last
+    view of x: its forward and backward through autograd less its forward,
+    the yardstick of the K1 backward at a K=0 site."""
+    xg = x.detach().requires_grad_(True)
+    gm = gamma.to(x.dtype).requires_grad_(True)
+    bt = beta.to(x.dtype).requires_grad_(True)
+    fwd = lambda: F.group_norm(as_nchw(xg), 32, gm, bt)  # noqa: E731
+    both = lambda: torch.autograd.grad(fwd(), (xg, gm, bt),  # noqa: E731
+                                       as_nchw(dy))
+    f1, b1 = cuda_ms(fwd, reps), cuda_ms(both, reps)
+    b2, f2 = cuda_ms(both, reps), cuda_ms(fwd, reps)
+    return (b1 + b2 - f1 - f2) / 2
 
 
 def check_flash(device, reps, results):
@@ -2296,9 +2459,13 @@ def profile_steps(run, label, smi, top=6):
     device = sum(ms for ms, _ in stats)
     head = ", ".join(f"{key[:40]} {ms:.2f}" for ms, key in
                      sorted(stats, reverse=True)[:top] if ms > 0)
+    k1 = [(ms, key) for ms, key in stats if "adagn" in key]
+    k1_str = "; ".join(f"{key[:70]} {ms:.2f}" for ms, key in
+                       sorted(k1, reverse=True))
     print(f"[profile] {label}: device {device:.2f} ms in {wall:.2f} ms wall "
           f"(device idle {1 - device / wall:.0%}; {smi}); most device ms: "
-          f"{head}")
+          f"{head}; K1 family (forward and backward) "
+          f"{sum(ms for ms, _ in k1):.2f} ms: {k1_str}")
 
 
 def slice_paths(device, smi, sites):
@@ -2923,11 +3090,19 @@ def main() -> None:
             torch.zeros(1, SIZE, SIZE, 3, device=device),
             torch.zeros(1, dtype=torch.long, device=device),
             torch.zeros(1, A_DIM, device=device))
-        gn_sites = adagn_sites(img32, forward)
+        gn_sites = adagn_rate.gn_sites(img32, forward)
         chainless, fused = qconv_sites(img32, forward)
         del img32
     if run(3):
         check_adagn(gn_sites, device, 10, results)
+        check_foreign_plans(device)
+        host = adagn_rate.host_us(gn_sites, device)
+        print(f"[K1 host] bf16 B=2, {len(gn_sites)} sites, host us per "
+              f"ops.norm.adagn call: forward {host['forward_us']:.2f}, "
+              f"forward and backward {host['forward_backward_us']:.2f} "
+              f"(tools/adagn_rate.py; as a file it times another "
+              f"checkout's)")
+        check_latent_route(device)
         check_attention(device, 10, results)
         lat_models = {tag: flagship(dtype, device)[2]
                       for tag, dtype in DTYPES.items()}
@@ -2981,12 +3156,13 @@ def main() -> None:
         slice_card_vs_cpu(device)
     if run(15):
         check_flash_wide(device, 3, results)
-        # K1, its backward and K4 at the 512px paths' shapes, errors only
+        # K1 and its backward at the 512px paths' shapes, timed (not in the
+        # kernels line); K4 errors only
         sites = loss_sites(HIRES, device)
         for B in sorted(set(HIRES_BATCH.values())):
-            check_adagn(sites, device, 0, results, B=B)
-        check_adagn_bwd({HIRES: (HIRES_BATCH["train"], sites)}, device, 0,
-                        results)
+            check_adagn(sites, device, 2, results, B=B, line=False)
+        check_adagn_bwd({HIRES: (HIRES_BATCH["train"], sites)}, device, 2,
+                        results, line=False)
         check_latent_traj({tag: flagship(dtype, device)[2]
                            for tag, dtype in DTYPES.items()}, device, 0,
                           results, B=HIRES_BATCH["generate"])

@@ -22,9 +22,12 @@ per-forward route (K5) is asked for.
 - ``TwoPhaseDiffusionProcess``: an InfoDiff and a vanilla Diff, sampling
   in two phases and reverse sampling through the InfoDiff.
 - ``LatentDiffusionProcess``: sampling and reverse sampling of the latent
-  prior through the trajectory kernel K4 (``turbo='int8'`` streams int8
-  weights), or, with ``INFODIFF_ENABLE_FUSED_LATENT=1``, through
-  ``sample_loop`` / ``reverse_sample_loop`` with one K5 forward per step.
+  prior on the route ``latent_route`` picks: the trajectory kernel K4
+  (``turbo='int8'`` streams int8 weights), or, with
+  ``INFODIFF_ENABLE_FUSED_LATENT=1``, ``sample_loop`` /
+  ``reverse_sample_loop`` with one K5 forward per step, or, where the
+  cluster core does not take a_dim or the kernels are switched off, those
+  loops over the model's own forward.
 
 ``eps_fn(x, t, a)`` takes an int64 ``t`` [B]; random draws come from an
 explicit ``torch.Generator`` on the device, or are injected with
@@ -54,6 +57,7 @@ from infodiffusion_tpu_torch.ops.cuda.latent_mlp import (
     use_fused_latent,
 )
 from infodiffusion_tpu_torch.ops.cuda.latent_traj import (
+    latent_route,
     latent_trajectory,
     quantize_packed_weights,
 )
@@ -374,16 +378,18 @@ _LATENT_TURBO_OFF = (
 
 class LatentDiffusionProcess:
     """The latent prior's sampler. ``model`` is a port
-    ``Diff(is_latent=True)``; its weights are packed once, here, in the
-    model's dtype. By default the whole trajectory runs as one K4 launch
-    on the card (its plain version on the CPU), and ``turbo='int8'``
-    quantizes the packed weights to K4's int8 stream
-    (``quantize_packed_weights``). With ``use_fused_latent`` (opt-in
-    ``INFODIFF_ENABLE_FUSED_LATENT=1``) the per-forward route outranks K4,
-    as in the JAX package: ``sample_loop`` and ``reverse_sample_loop`` over
-    ``latent_eps_fn``, one K5 launch per step; the int8 stream is K4's
-    only, so a turbo mode there warns, as the JAX process does, and samples
-    with the unquantized packed weights."""
+    ``Diff(is_latent=True)``. ``route`` is :func:`latent_route`'s choice,
+    made here as the JAX process makes it: "k4" runs the whole trajectory
+    as one K4 launch on the card (its plain version on the CPU) over the
+    weights packed once, here, in the model's dtype, and ``turbo='int8'``
+    quantizes them to K4's int8 stream (``quantize_packed_weights``); "k5"
+    (opt-in ``INFODIFF_ENABLE_FUSED_LATENT=1``) runs ``sample_loop`` and
+    ``reverse_sample_loop`` over ``latent_eps_fn``, one K5 launch per step;
+    "torch" runs those loops over the model's own forward (stock torch ops,
+    JAX's XLA scan) where the cluster core does not take a_dim or the
+    kernels are switched off. The int8 stream is K4's only, so a turbo mode
+    on the other routes warns, as the JAX process does, and samples
+    unquantized."""
 
     def __init__(self, cfg, model: torch.nn.Module,
                  turbo: Optional[str] = None):
@@ -393,15 +399,29 @@ class LatentDiffusionProcess:
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
         self.turbo = _resolve_turbo(cfg, turbo)
-        self.per_forward = (
-            use_fused_latent(next(model.parameters()))
-            and fused_latent_supported(model.backbone, cfg.a_dim))
-        self.params = pack_latent_unet_params(model.backbone, cfg.a_dim,
-                                              dtype=model.dtype)
-        if self.turbo and self.per_forward:
+        self.route = "torch"
+        if fused_latent_supported(model.backbone, cfg.a_dim):
+            self.route = latent_route(
+                cfg.a_dim, model.dtype,
+                use_fused_latent(next(model.parameters())))
+        self.params = None
+        if self.route != "torch":
+            self.params = pack_latent_unet_params(model.backbone, cfg.a_dim,
+                                                  dtype=model.dtype)
+        if self.turbo and self.route != "k4":
             warnings.warn(_LATENT_TURBO_OFF)
         elif self.turbo:
             self.params = quantize_packed_weights(self.params)
+
+    @property
+    def per_forward(self) -> bool:
+        """Whether the sampler runs K5 once a step."""
+        return self.route == "k5"
+
+    def _eps_fn(self) -> Callable:
+        if self.route == "k5":
+            return latent_eps_fn(self.params)
+        return lambda x, t, a=None: self.model(x, t)
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
@@ -410,9 +430,9 @@ class LatentDiffusionProcess:
         if xT is None:
             xT = torch.randn((sampling_number, self.cfg.a_dim),
                              generator=generator, device=self.device)
-        if self.per_forward:
-            return sample_loop(latent_eps_fn(self.params), self.sched, xT,
-                               generator, deterministic=self.cfg.deterministic,
+        if self.route != "k4":
+            return sample_loop(self._eps_fn(), self.sched, xT, generator,
+                               deterministic=self.cfg.deterministic,
                                noises=noises)
         return latent_trajectory(
             self.params, self.sched, xT, generator,
@@ -421,8 +441,7 @@ class LatentDiffusionProcess:
 
     @torch.no_grad()
     def reverse_sampling(self, x0: torch.Tensor) -> torch.Tensor:
-        if self.per_forward:
-            return reverse_sample_loop(latent_eps_fn(self.params), self.sched,
-                                       x0)
+        if self.route != "k4":
+            return reverse_sample_loop(self._eps_fn(), self.sched, x0)
         return latent_trajectory(self.params, self.sched, x0,
                                  deterministic=True, reverse=True)

@@ -48,6 +48,7 @@ _W_CODES = {**_lib.DTYPE_CODES, torch.int8: 2}
 
 EPS = 1e-5
 MAX_A_DIM = 1024
+MAX_F32_A_DIM = 768    # f32 W: beyond it no plan fits the shared memory
 # the cluster core's launch arithmetic (csrc/latent_common.cuh make_plan)
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may use
 _ALIGN = 1024          # the 128-byte swizzle's atoms
@@ -64,9 +65,11 @@ LATENT_THREADS = 160   # a consumer warpgroup and a producer warp
 
 def fused_latent_supported(backbone, a_dim: int) -> bool:
     """True when ``backbone`` (a port ``LatentUNet``) has the architecture
-    the packing and the kernels hard-code: 10 layers, hidden 4 a_dim,
+    the packing and the kernels hard-code (10 layers, hidden 4 a_dim,
     layers 0-8 conditioned and normalised, layer 9 plain, two time-embedding
-    layers."""
+    layers) at an a_dim the cluster core takes (:func:`latent_a_dim_ok`)."""
+    if not latent_a_dim_ok(a_dim):
+        return False
     for i in range(NUM_LAYERS):
         layer = getattr(backbone, f"layer_{i}", None)
         if layer is None:
@@ -287,9 +290,16 @@ def _plan_args(plan: dict):
             plan["rows"], plan["clusters"], plan["stages"], plan["smem"])
 
 
+def latent_a_dim_ok(d: int, w_dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the cluster core takes a_dim ``d`` with W of ``w_dtype``: a
+    multiple of 16 from 16 to 1024, to 768 with f32 W."""
+    top = MAX_F32_A_DIM if w_dtype == torch.float32 else MAX_A_DIM
+    return 16 <= d <= top and d % 16 == 0
+
+
 def check_a_dim(d: int, what: str) -> None:
     """Raise unless the cluster core takes a_dim ``d``."""
-    if not (16 <= d <= MAX_A_DIM and d % 16 == 0):
+    if not latent_a_dim_ok(d):
         raise ValueError(f"{what} takes a_dim a multiple of 16 up to "
                          f"{MAX_A_DIM}, got {d}")
 

@@ -21,11 +21,14 @@ per-step 1 + FiLM rows ``c_all`` (they depend on the timestep only), the
 
 The TPU kernel's Mosaic artifacts (the ``a_dim % 32`` gate and the lane
 padding) are not ported. The CUDA kernel's own limits: a_dim a multiple of
-16 up to 1024, W in f32, bf16 or int8 (with Wsc).
+16 up to 1024 (f32 W up to 768), W in f32, bf16 or int8 (with Wsc).
+:func:`latent_route` is the sampler's choice between K4, K5 and the plain
+torch scan, made where JAX makes its own, before anything runs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -43,9 +46,30 @@ from infodiffusion_tpu_torch.ops.cuda.latent_mlp import (
     EPS,
     _plan_args,
     check_a_dim,
+    latent_a_dim_ok,
     latent_plan_on,
 )
 from infodiffusion_tpu_torch.ops.quant import _per_127
+
+
+def latent_route(a_dim: int, w_dtype: torch.dtype,
+                 per_forward_wanted: bool) -> str:
+    """How ``LatentDiffusionProcess`` samples, as the JAX process chooses:
+    "k5" (one K5 forward a step) on the per-forward opt-in, "k4" (the whole
+    trajectory in one launch) by default, both only where the cluster core
+    takes a_dim and the W dtype (:func:`latent_a_dim_ok`); "torch" (the
+    samplers over the model's own forward, JAX's XLA scan) otherwise and
+    under ``INFODIFF_DISABLE_PALLAS=1``, and in place of K4 under
+    ``INFODIFF_DISABLE_FUSED_LATENT_TRAJ=1``. Pure: the CPU and the card
+    decide alike."""
+    if (os.environ.get("INFODIFF_DISABLE_PALLAS") == "1"
+            or not latent_a_dim_ok(a_dim, w_dtype)):
+        return "torch"
+    if per_forward_wanted:
+        return "k5"
+    if os.environ.get("INFODIFF_DISABLE_FUSED_LATENT_TRAJ") == "1":
+        return "torch"
+    return "k4"
 
 
 def quantize_packed_weights(packed: Dict[str, torch.Tensor]):

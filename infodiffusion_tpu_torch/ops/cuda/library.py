@@ -21,6 +21,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -35,12 +36,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the kernels' entry points (csrc/*.cu)
 _SIGNATURES = {
-    "infodiff_adagn": [_P, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "infodiff_adagn": [_P] * 12,
+    "infodiff_adagn_clusters": [_I, _P],
+    "infodiff_adagn_bwd_clusters": [_I, _P],
     "infodiff_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "infodiff_latent_traj": [_P] * 11 + [_I] * 12 + [_P],
     "infodiff_latent_traj_clusters": [_I, _I, _P],
     "infodiff_cluster_exchange_probe": [_I, _I, _I, _P],
-    "infodiff_adagn_bwd": [_P] * 13 + [_I] * 10 + [_P],
+    "infodiff_adagn_bwd": [_P] * 17,
     "infodiff_attention_tiled": [_P] * 4 + [_I] * 5 + [_P],
     "infodiff_attention_plan": [_I] * 5 + [_P],
     "infodiff_flash_attention": [_P] * 4 + [_I] * 6 + [_P],
@@ -153,8 +156,12 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_handle(index: Optional[int] = None) -> int:
+    """The current stream of card ``index`` (by default the current
+    card's), as the raw handle the C entries take."""
+    if index is None:
+        return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_tensor(t: torch.Tensor, name: str, *, shape=None, dtypes=None,

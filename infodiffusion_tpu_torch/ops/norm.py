@@ -2,13 +2,14 @@
 (JAX counterpart: ``infodiffusion_tpu/ops/norm.py``).
 
 ``x`` is NHWC ``[B, H, W, C]`` or ``[B, N, C]``; ``num_groups`` groups over
-the channel (last) axis; statistics in f32. Every GroupNorm site goes
-through one ``autograd.Function``: on a CUDA tensor its forward is kernel
-K1 and its backward the K1 backward kernel (``ops/cuda/adagn.py``); on a
-CPU tensor the plain forward and the explicit plain backward, so the CPU
-tests run the same wiring and formulas the card runs. FiLM-free sites run
-with K=0. Nothing is saved for backward when no input needs a gradient
-(``torch.no_grad()``, inference).
+the channel (last) axis; statistics in f32. With gradients on, every
+GroupNorm site goes through one ``autograd.Function``: on a CUDA tensor its
+forward is kernel K1 and its backward the K1 backward kernel
+(``ops/cuda/adagn.py``); on a CPU tensor the plain forward and the explicit
+plain backward, so the CPU tests run the same wiring and formulas the card
+runs. FiLM-free sites run with K=0. Nothing is saved for backward when no
+input needs a gradient; with gradients off (``torch.no_grad()``,
+inference) the forward is called without the Function.
 """
 
 from __future__ import annotations
@@ -71,7 +72,12 @@ def adagn(
     films: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
 ) -> torch.Tensor:
     """GroupNorm, then the FiLMs ``h = h * (1 + s) + b`` in order: one for
-    time, a second for the aux latent in AuxResBlock. Each (s, b): [B, C]."""
+    time, a second for the aux latent in AuxResBlock. Each (s, b): [B, C].
+    With gradients off (sampling) the forward runs without the
+    ``autograd.Function``, whose host cost there buys nothing."""
+    if not torch.is_grad_enabled():
+        run = adagn_cuda if x.is_cuda else adagn_reference
+        return run(x, num_groups, scale, bias, films)
     return _AdaGN.apply(x, num_groups, scale, bias,
                         *(t for pair in films for t in pair))
 

@@ -42,9 +42,10 @@ def synchronize(device: torch.device) -> None:
 
 
 def profile_step(run, device: torch.device, top: int = 8) -> dict:
-    """Device and wall ms of one ``run()`` (after a warm-up) and the
-    kernels that took the most device time, from torch.profiler's device
-    events."""
+    """Device and wall ms of one ``run()`` (after a warm-up), the kernels
+    that took the most device time, from torch.profiler's device events,
+    and the device ms of K1's family (the kernels named for adagn, forward
+    and backward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -63,6 +64,7 @@ def profile_step(run, device: torch.device, top: int = 8) -> dict:
     busy = sum(ms for ms, _ in stats)
     return {"device_ms": busy, "wall_ms": wall,
             "idle": 1 - busy / wall if wall > 0 else None,
+            "adagn_ms": sum(ms for ms, key in stats if "adagn" in key),
             "kernels": [[key[:80], ms] for ms, key in
                         sorted(stats, reverse=True)[:top] if ms > 0]}
 

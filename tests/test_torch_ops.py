@@ -477,7 +477,7 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(2, 16, 64)
     c = torch.ones(64)
     with pytest.raises(ValueError, match="CUDA"):
-        adagn_bwd_cuda(x, x, 32, c, c, (), torch.zeros(2, 1, 2, 64))
+        adagn_bwd_cuda(x, x, 32, c, c, (), torch.zeros(2, 3, 32))
     q = torch.zeros(2, 16, 128)
     with pytest.raises(ValueError, match="CUDA"):
         pflash.flash_attention_cuda(q, q, q)
