@@ -62,13 +62,24 @@ on the card. Phases, each printing one line or a few, any failure raising:
    from the same (the CPU's) gradients.
 9. int8 kernels: the chainless int8 conv (exact on the s32 contract and
    on the route's: scale, bias and a bf16 partial to bf16), K7 v1
-   (relative L2, max error, the int8 flips counted through the kernel) and
-   v2 (bitwise v1) at every distinct quantized conv site of one flagship
-   forward at B=128, bf16, and K4's int8 weight stream at B=128 d=256
-   S=1000 (with its cluster plan), each against its plain version with
-   CUDA-event times, the card's bound and, for the int8 conv, its launch
-   plan, cuDNN's bf16 conv as a yardstick and the CUDA-graph device times
-   of both contracts and of cuDNN.
+   (relative L2, max error, the int8 flips counted through the kernel, at
+   most the parent's count) and v2 (bitwise v1) at every distinct
+   quantized conv site of one flagship forward at B=128, bf16, and K4's
+   int8 weight stream at B=128 d=256 S=1000 (with its cluster plan), each
+   against its plain version with CUDA-event times, the card's bound and,
+   for the int8 conv, its launch plan, cuDNN's bf16 conv as a yardstick
+   and the CUDA-graph device times of both contracts and of cuDNN. K7 per
+   site: both bodies' launch plans (qconv_launch_plan: tile, images a
+   tile, rows carried, ring, raw rows, weight stages, shared bytes, the
+   registers ptxas gave the kernel, which every warpgroup holds), their
+   CUDA-graph device times, each body bitwise a second call and K7
+   bitwise the chainless int8 conv on K7's own int8 values; beside them
+   the tier's default route at the site (the chain materialized,
+   quantize_act, the int8 conv: tools/qconv_bench.py's yardstick). Then
+   K7's branch-free divides against __fdiv_rn on every float of their
+   range and its chain against the exact one on random and special
+   values (qconv_chain_check), and the chain floor: the chain's SASS
+   instructions an element over the SMs' issue rate.
 10. the int8 slice, flagship, bf16, B=128:
    ``LatentDiffusionProcess(turbo='int8').sampling`` then
    ``DiffusionProcess(turbo='int8').sampling(num_steps=100)`` on the
@@ -235,6 +246,7 @@ from infodiffusion_tpu_torch.tools import (
     adagn_rate,
     flash_attn_bench,
     microbench_attention,
+    qconv_bench,
     time_ms,
 )
 from infodiffusion_tpu_torch.tools.adagn_rate import films_of
@@ -369,7 +381,7 @@ KERNELS.update({
                   replaces="infodiffusion_tpu/ops/pallas/qconv.py:244 "
                            "(_kernel, pallas_call :499)"),
     "qconv_v2": dict(fn=K7.qconv_v2_cuda, route="cuda",
-                     source="infodiffusion_tpu_torch/csrc/qconv.cu",
+                     source="infodiffusion_tpu_torch/csrc/qconv_v2.cu",
                      replaces="infodiffusion_tpu/ops/pallas/qconv.py:337 "
                               "(_kernel_v2, pallas_call :499)"),
     "int8_conv": dict(fn=K7.int8_conv_cuda, route="cuda",
@@ -813,6 +825,10 @@ def build() -> None:
             raise AssertionError(f"{what} kernels without {op}: {n}")
         print(f"[build] cuobjdump -sass: {op} in all {len(n)} {what} kernels "
               f"({min(n.values())}-{max(n.values())} each)")
+    old = [f for f, c in counts.items() if "qconv" in f and c["IMMA"]]
+    if old:  # K7 runs on the warpgroup core only: no mma.sync body left
+        raise AssertionError(f"K7 kernels with mma.sync (IMMA): {old}")
+    print("[build] cuobjdump -sass: no IMMA (mma.sync) in any K7 kernel")
 
 
 # the warpgroup products each Hopper body must compile to, by kernel name:
@@ -823,6 +839,8 @@ GMMA_BODIES = (
     ("bf16 K3b cols", "HGMMA",
      lambda f: f.startswith("_ZN9flash_bwd") and "cols_kernel" in f),
     ("int8 conv", "IGMMA", lambda f: f.startswith("_ZN10int8_wgmma")),
+    ("K7 v1", "IGMMA", lambda f: "qconv_v1_kernel" in f),
+    ("K7 v2", "IGMMA", lambda f: "qconv_v2_kernel" in f),
     ("bf16 K6", "HGMMA", lambda f: "shortcut_wgmma_kernel" in f),
     ("bf16 K4", "HGMMA", lambda f: "latent_traj_bf16_kernel" in f),
     ("int8 K4", "HGMMA", lambda f: "latent_traj_int8_kernel" in f),
@@ -831,23 +849,31 @@ GMMA_BODIES = (
 
 
 def gmma_counts(lib_path) -> dict:
-    """Warpgroup product instructions (HGMMA: bf16 wgmma; IGMMA: s8) per
-    kernel in the built library's SASS, by cuobjdump."""
+    """Warpgroup product instructions (HGMMA: bf16 wgmma; IGMMA: s8) and
+    s8 mma.sync ones (IMMA) per kernel in the built library's SASS."""
+    counts = {}
+    for fn, lines in sass_functions(lib_path).items():
+        counts[fn] = {op: sum(f" {op}" in line for line in lines)
+                      for op in ("HGMMA", "IGMMA", "IMMA")}
+    return counts
+
+
+def sass_functions(lib_path) -> dict:
+    """Each kernel's SASS instruction lines in the built library, by
+    cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    funcs, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "IGMMA": 0}
-        elif fn:
-            for op in ("HGMMA", "IGMMA"):
-                if op in line:
-                    counts[fn][op] += 1
-    return counts
+            funcs[fn] = []
+        elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            funcs[fn].append(line)
+    return funcs
 
 
 def adagn_plan_str(B, hw, c, k, dtype, device, backward=False) -> str:
@@ -1695,15 +1721,114 @@ def kernel_q(run, pieces, A, Bv, s):
     return torch.round(out).to(torch.int8)
 
 
+# int8 flips of K7's chain against chain_q at phase 9's inputs (seed 8, the
+# flagship's 11 sites at B=128): the count the parent's K7 showed (PR 11's
+# phase 9), which K7 may not exceed
+PARENT_QCONV_FLIPS = 0
+
+
+def kernel_registers(pattern: str) -> str:
+    """The registers and spills ptxas reported for the kernels whose
+    mangled name holds ``pattern`` (the build log)."""
+    fn, regs, spills = None, set(), {0}
+    for line in library().build_log.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            fn = line.split()[-1]
+        elif fn and pattern in fn:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.add(int(m.group(1)))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spills.add(int(m.group(1)))
+    return (f"{'/'.join(map(str, sorted(regs)))} registers a thread, "
+            f"{max(spills)} bytes spilled")
+
+
+def qconv_plan_str(B, h, w, splits, cout, v2: bool) -> str:
+    """K7's launch at one site (qconv_launch_plan), bf16 pieces."""
+    p = K7.qconv_launch_plan(B, h, w, sum(splits), cout, torch.bfloat16, v2)
+    tile = (f"{p['ipt']} images of {p['th']}x{p['tw']}" if p["ipt"] > 1
+            else f"{p['th']}x{p['tw']}")
+    raw = (f", raw ring {p['raw_rows']} rows of "
+           f"{p['raw_row_bytes'] / 1024:.1f} KB" if p["raw_rows"] else "")
+    return (f"{p['blocks']} blocks x {p['threads']} threads over "
+            f"{p['walks']} walks of {p['rps']} tiles of {tile} "
+            f"({p['carry']} rows carried), Cout in {p['npass']} N tiles of "
+            f"{p['n']}, window ring {p['ring']} rows{raw}, weights "
+            f"{'resident' if p['resident'] else 'streamed'} ({p['stages']} "
+            f"stages of {p['w_stage'] / 1024:.1f} KB), "
+            f"{p['smem'] / 1024:.1f} KB")
+
+
+def chain_floor_ms(elements: int) -> str:
+    """K7's chain floor: its SASS instructions an element on the fast path
+    (the chain8 probe kernel's instructions to its first EXIT, less the
+    copy kernel's, over its eight elements) times ``elements`` over the
+    SMs' issue rate (132 SMs x 4 schedulers x 32 lanes) at the card's
+    maximum SM clock."""
+    counts = {}
+    for fn, lines in sass_functions(library_path()).items():
+        if "chain8_kernel" in fn:
+            n = next((i + 1 for i, ln in enumerate(lines) if " EXIT" in ln),
+                     len(lines))
+            counts["Lb1E" in fn] = n
+    per = (counts[True] - counts[False]) / 8
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    ms = per * elements / (132 * 128 * mhz * 1e6) * 1e3
+    return (f"chain floor {ms:.4f} ms ({per:.1f} SASS instructions an element "
+            f"on the fast path x {elements / 1e6:.1f} M elements over 132 "
+            f"SMs x 128 lanes at {mhz:.0f} MHz)")
+
+
+def check_qconv_chain(s_values, device):
+    """K7's branch-free divides against __fdiv_rn on every float of their
+    range (1 / d for d in [1, 2^60); a / s for |a| in [2^-60, 2^60) at the
+    scales ``s_values``) and its chain against the exact one on random and
+    special values: raises on any mismatching bit."""
+    bad = {"1/d": K7.qconv_chain_check(0, 1.0)}
+    for s in s_values:
+        bad[f"a/{s:.6g}"] = K7.qconv_chain_check(1, s)
+    g = torch.Generator(device=device).manual_seed(3)
+    x = 3 * torch.randn(1 << 22, generator=g, device=device)
+    special = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1e-40,
+                            -1e-40, 1e30, -1e30, 88.0, -88.0, 87.4, -87.4,
+                            3e38, -3e38, 1e-20], device=device)
+    x[:special.numel() * 64] = special.repeat(64)
+    ab = torch.cat([1.0 + 0.1 * torch.randn(8, generator=g, device=device),
+                    0.1 * torch.randn(8, generator=g, device=device)])
+    for s in (0.01, 1e-35, 1e25):
+        bad[f"chain s={s:g}"] = K7.qconv_chain_check(2, s, x, ab)
+    if any(bad.values()):
+        raise AssertionError(f"K7's chain differs from its exact form: {bad}")
+    print(f"[K7 qconv] fast divides bit for bit __fdiv_rn on every float of "
+          f"their range (1/d; a/s at {len(s_values)} scales) and the chain "
+          f"the exact one on {x.numel()} random and special values at 3 "
+          f"scales: 0 mismatches")
+
+
 def check_qconv(sites, device, reps, results):
     """K7 v1 and v2 at every ResBlock conv site, B=BATCH, bf16 pieces:
     v1 against the plain version (relative L2, max abs over max abs, the
-    int8 flips counted through the kernel), v2 bitwise equal to v1."""
+    int8 flips counted through the kernel, at most the parent's), v2
+    bitwise v1, each body bitwise a second call, K7 bitwise the chainless
+    int8 conv on its own int8 values; both bodies' plans and CUDA-event
+    and CUDA-graph device times beside the bound and the tier's default
+    route at the site; then the chain's exactness and floor."""
     g = torch.Generator(device=device).manual_seed(8)
     B = BATCH
-    ms1 = ms2 = plain_ms = 0.0
+    f32 = torch.float32
+    tot = dict.fromkeys(("v1", "v2", "plain", "dev1", "dev2", "route",
+                         "dev_route"), 0.0)
     flips = total = 0
+    scales = set()
     bnd = Bound()
+    regs = {v2: kernel_registers("qconv_v2_kernel" if v2 else
+                                 "qconv_v1_kernel") for v2 in (False, True)}
     for h, w, splits, cout in sites:
         ctot = sum(splits)
         pieces = [(0.5 * torch.randn(B, h, w, c, generator=g, device=device)
@@ -1715,13 +1840,14 @@ def check_qconv(sites, device, reps, results):
                                    device=device)
         bias = 0.1 * torch.randn(cout, generator=g, device=device)
         s_act = Q.act_scale(absmax)
+        scales.update(float(v) for v in s_act)
         kmat, sw = K7._fold_pack(kernel, s_act, list(splits))
         args = (pieces, A, Bv, s_act, kmat, sw, bias)
-        got = K7.qconv_cuda(*args, torch.float32)
-        got2 = K7.qconv_v2_cuda(*args, torch.float32)
+        got = K7.qconv_cuda(*args, f32)
+        got2 = K7.qconv_v2_cuda(*args, f32)
+        again = (K7.qconv_cuda(*args, f32), K7.qconv_v2_cuda(*args, f32))
         torch.cuda.synchronize()
-        want = K7.qconv_reference(pieces, A, Bv, absmax, kernel, bias,
-                                  torch.float32)
+        want = K7.qconv_reference(pieces, A, Bv, absmax, kernel, bias, f32)
         l2 = ((got.double() - want.double()).norm()
               / want.double().norm()).item()
         abs_e, rel_e = rel_err(got, want)
@@ -1732,35 +1858,71 @@ def check_qconv(sites, device, reps, results):
         results.record("qconv", tag, abs_e, rel_e, TOL["qconv_max"])
         if not torch.equal(got, got2):
             raise AssertionError(f"qconv_v2 {tag}: not bitwise equal to v1")
+        if not (torch.equal(got, again[0]) and torch.equal(got2, again[1])):
+            raise AssertionError(f"qconv {tag}: a second call differs")
         results.record("qconv_v2", tag, abs_e, rel_e, TOL["qconv_max"])
-        del got, got2, want
+        q_k = kernel_q(K7.qconv_cuda, pieces, A, Bv, s_act)
+        kq = kmat.view(3, ctot, 3, cout).permute(2, 0, 1, 3).contiguous()
+        if not torch.equal(got, K7.int8_conv_cuda(q_k, kq, 1, scale=sw,
+                                                  bias=bias, out_dtype=f32)):
+            raise AssertionError(f"qconv {tag}: not bitwise the chainless "
+                                 f"int8 conv on its own int8 values")
         q_p = K7.chain_q(pieces, A, Bv, s_act)
-        n_flip = int((kernel_q(K7.qconv_cuda, pieces, A, Bv, s_act)
-                      != q_p).sum())
+        n_flip = int((q_k != q_p).sum())
         flips, total = flips + n_flip, total + q_p.numel()
-        del q_p
+        del got, got2, again, want, q_p, q_k, kq
         plain = lambda: K7.qconv_reference(pieces, A, Bv, absmax, kernel,
                                            bias)
         k1, pm = paired_ms(lambda: K7.qconv_cuda(*args), plain, reps, 1)
         k2 = cuda_ms(lambda: K7.qconv_v2_cuda(*args), reps)
+        route = qconv_bench.default_route(absmax, kernel, bias, splits)
+        rm = cuda_ms(lambda: route(pieces, A, Bv), reps)
         ops = 2 * B * h * w * 9 * ctot * cout
         b_ms = bnd.add(ops, B * h * w * (2 * ctot + 2 * cout) + 8 * B * ctot
                        + 9 * ctot * cout + 8 * cout, PEAK["int8"])
         at_least(f"K7 v1 B={B}", k1, b_ms)
         at_least(f"K7 v2 B={B}", k2, b_ms)
-        ms1, ms2, plain_ms = ms1 + k1, ms2 + k2, plain_ms + pm
+        n = len(pieces)
+
+        def body(run):
+            return lambda *t: run(list(t[:n]), t[n], t[n + 1], s_act, kmat,
+                                  sw, bias)
+
+        d1 = device_ms(f"K7 v1 {tag}", body(K7.qconv_cuda), (*pieces, A, Bv),
+                       b_ms)
+        d2 = device_ms(f"K7 v2 {tag}", body(K7.qconv_v2_cuda),
+                       (*pieces, A, Bv), b_ms)
+        dr = device_ms(f"default route {tag}", lambda *t: route(
+            list(t[:n]), t[n], t[n + 1]), (*pieces, A, Bv), 0.0)
+        for k, v in (("v1", k1), ("v2", k2), ("plain", pm), ("dev1", d1),
+                     ("dev2", d2), ("route", rm), ("dev_route", dr)):
+            tot[k] += v
         print(f"[K7 qconv] B={B} {tag}: rel L2 {l2:.2e}, max abs {rel_e:.2e} "
               f"of max; int8 flips {n_flip} of {B * h * w * ctot}; v2 == v1 "
-              f"bitwise; bf16 out: v1 {k1:.4f} ms ({ops / k1 / 1e9:.1f} "
-              f"TOP/s), v2 {k2:.4f} ms, plain {pm:.4f} ms, bound "
-              f"{b_ms:.4f} ms")
+              f"bitwise, each a second call's, K7 the chainless conv's on its "
+              f"own int8 values; v1 "
+              f"{qconv_plan_str(B, h, w, splits, cout, False)}; v2 "
+              f"{qconv_plan_str(B, h, w, splits, cout, True)}; bf16 out: v1 "
+              f"{k1:.4f} ms ({ops / k1 / 1e9:.1f} TOP/s), v2 {k2:.4f} ms, "
+              f"plain {pm:.4f} ms, bound {b_ms:.4f} ms, default route "
+              f"{rm:.4f} ms; device v1 {d1:.4f}, v2 {d2:.4f}, default route "
+              f"{dr:.4f} ms")
         del pieces, args
-    print(f"[K7 qconv] all {len(sites)} sites once: v1 {ms1:.4f} ms, v2 "
-          f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd.ms:.4f} ms "
-          f"({bnd.by}); int8 flips {flips} of {total} "
-          f"({flips / max(total, 1):.2e})")
-    results.time("qconv", "bf16", ms1, plain_ms, bnd)
-    results.time("qconv_v2", "bf16", ms2, plain_ms, bnd)
+    if flips > PARENT_QCONV_FLIPS:
+        raise AssertionError(f"K7: {flips} int8 flips against chain_q, the "
+                             f"parent's K7 {PARENT_QCONV_FLIPS}")
+    print(f"[K7 qconv] all {len(sites)} sites once: v1 {tot['v1']:.4f} ms, "
+          f"v2 {tot['v2']:.4f} ms, plain {tot['plain']:.4f} ms, bound "
+          f"{bnd.ms:.4f} ms ({bnd.by}), default route {tot['route']:.4f} ms; "
+          f"device v1 {tot['dev1']:.4f}, v2 {tot['dev2']:.4f}, default route "
+          f"{tot['dev_route']:.4f} ms; int8 flips {flips} of {total} "
+          f"({flips / max(total, 1):.2e}; the parent's {PARENT_QCONV_FLIPS}); "
+          f"kernels: v1 {regs[False]}, v2 {regs[True]} (ptxas compiles every "
+          f"warpgroup to the launch's share)")
+    check_qconv_chain(sorted(scales), device)
+    print(f"[K7 qconv] {chain_floor_ms(total)}")
+    results.time("qconv", "bf16", tot["v1"], tot["plain"], bnd)
+    results.time("qconv_v2", "bf16", tot["v2"], tot["plain"], bnd)
 
 
 def check_latent_traj_int8(lat, device, results):

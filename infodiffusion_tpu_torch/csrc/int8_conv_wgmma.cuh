@@ -37,6 +37,13 @@
 // - Epilogue from the accumulators: s32 out, or f32(acc) [+ bf16 partial]
 //   [* scale + bias] to f32 / bf16, each operation rounded once; lanes
 //   pair up (one shuffle) so each stores four consecutive channels.
+//
+// The consumer warpgroups (consumer_role) and the walk over a block's
+// tiles (Walker) are shared with K7 (qconv_wgmma.cuh), whose producers
+// fill the window with the chain instead of copying it. A walk is a run of consecutive row tiles of one
+// image column strip that one block takes in order; here every walk is one
+// tile (the plan's segs = row_tiles, rps = 1), so the order is the tile
+// order above, and the window is the two buffers of win_bytes (ring = 0).
 #pragma once
 
 #include <algorithm>
@@ -69,6 +76,13 @@ struct Plan {
   int kp, n, nsplit, ipt, th, tw, win_rows, win_cols, win_bytes, w_stage,
       n_stages, stages, resident, smem, groups, row_tiles, col_tiles, tiles,
       blocks;
+  // the walks: segs row segments of rps row tiles per image column strip,
+  // walks in all; ring: window row slots (K7), 0 for the two buffers of
+  // win_bytes; raw_rows / raw_row_bytes: K7 v2's staging ring of raw rows
+  int segs, rps, walks, ring, raw_rows, raw_row_bytes;
+  // N tiles a tile's consumers run one after another from its window
+  // (here 1: the N split is a tile's; K7 runs all of Cout so)
+  int npass;
 };
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -129,6 +143,11 @@ inline bool make_plan(int B, int H, int W, int Cin, int Cout, int stride,
   if (tiles > (1LL << 30)) return false;
   p.tiles = (int)tiles;
   p.blocks = std::min(p.tiles, kSMs);
+  p.segs = p.row_tiles;  // a walk is one tile
+  p.rps = 1;
+  p.walks = p.tiles;
+  p.ring = p.raw_rows = p.raw_row_bytes = 0;
+  p.npass = 1;
   return true;
 }
 
@@ -142,6 +161,15 @@ struct Args {
   int out_code;
   int B, H, W, Cin, Cout, Ho, Wo, stride;
   Plan p;
+  // K7's chain (qconv_wgmma.cuh): pieces [B, H, W, C0] and [B, H, W, C1]
+  // (C1 = 0: one piece), Ctot = C0 + C1 <= Cin; rows A, Bv [B, Ctot] f32;
+  // the pieces' act scales s_act [n]
+  const void* x0;
+  const void* x1;
+  int C0, C1, ctot;
+  const float* A;
+  const float* Bv;
+  const float* s_act;
 };
 
 // the epilogue of four consecutive channels n .. n + 3 (n % 4 == 0, n <
@@ -208,21 +236,59 @@ __device__ __forceinline__ void store4(const Args& a, size_t row, int n,
   }
 }
 
-// where tile `tile` starts: N split, first image, output row and column
+// where a tile starts: N split, first image, output row and column
 struct Tile {
   int ns, b0, oh0, ow0;
 };
 
-__device__ __forceinline__ Tile tile_at(const Plan& p, int tile) {
+// A block's tiles in order: walks blockIdx.x, + gridDim.x, ...; a walk is
+// the row tiles [rt, rt_end) of one (N split, image group, column strip).
+// `it` counts the block's tiles, `first` marks a walk's first tile, and
+// `base` is the window ring's slot of the tile's window row 0: the next
+// tile of a walk reuses the last two rows (stride 1), so it starts
+// ipt * win_rows - 2 slots on, a new walk ipt * win_rows on.
+struct Walker {
   Tile t;
-  t.ow0 = (tile % p.col_tiles) * p.tw;
-  tile /= p.col_tiles;
-  t.oh0 = (tile % p.row_tiles) * p.th;
-  tile /= p.row_tiles;
-  t.b0 = (tile % p.groups) * p.ipt;
-  t.ns = tile / p.groups;
-  return t;
-}
+  int it, walk, rt, rt_end, base;
+  bool first;
+
+  __device__ explicit Walker(const Plan& p)
+      : it(0), walk(blockIdx.x), base(0) {
+    enter(p);
+  }
+  __device__ bool valid(const Plan& p) const { return walk < p.walks; }
+  __device__ void enter(const Plan& p) {
+    first = true;
+    if (walk >= p.walks) return;
+    int w = walk;
+    t.ow0 = (w % p.col_tiles) * p.tw;
+    w /= p.col_tiles;
+    const int seg = w % p.segs;
+    w /= p.segs;
+    t.b0 = (w % p.groups) * p.ipt;
+    t.ns = w / p.groups;
+    rt = seg * p.rps;
+    rt_end = min(p.row_tiles, rt + p.rps);
+    t.oh0 = rt * p.th;
+  }
+  __device__ void next(const Plan& p) {
+    const int wr = p.ipt * p.win_rows;
+    int adv = wr;
+    ++it;
+    if (++rt < rt_end) {
+      t.oh0 = rt * p.th;
+      first = false;
+      adv = wr - 2;
+    } else {
+      walk += gridDim.x;
+      enter(p);
+    }
+    if (p.ring) {
+      base += adv;
+      if (base >= p.ring) base -= p.ring;
+    }
+  }
+};
 
 // pixel m of a tile: image, output row and column in the tile; false
 // where m lies past the tile or the output
@@ -237,35 +303,228 @@ __device__ __forceinline__ bool pixel_at(const Args& a, const Tile& t, int m,
          t.ow0 + owl < a.Wo;
 }
 
+// the shared-memory address of K7's window row r (image img's row r %
+// win_rows) of the walker's tile: ring slot base + r
+__device__ __forceinline__ uint32_t ring_row(const Plan& p, uint32_t swin,
+                                             const Walker& w, int r,
+                                             int row_bytes) {
+  int s = w.base + r;
+  if (s >= p.ring) s -= p.ring;
+  return swin + s * row_bytes;
+}
+
+// the mbarriers: weight ring full / empty (ms weight stages at most),
+// window full / empty (by tile parity), and K7 v2's raw rows landed
+constexpr int kMaxRaw = 64;
+struct Bars {
+  uint32_t base;
+  int ms;
+  __device__ uint32_t wfull(int s) const { return base + 8 * s; }
+  __device__ uint32_t wempty(int s) const { return base + 8 * (ms + s); }
+  __device__ uint32_t winfull(int b) const {
+    return base + 8 * (2 * ms + b);
+  }
+  __device__ uint32_t winempty(int b) const {
+    return base + 8 * (2 * ms + 2 + b);
+  }
+  __device__ uint32_t rawfull(int k) const {
+    return base + 8 * (2 * ms + 4 + k);
+  }
+  // by one thread: the weight ring's and the windows' barriers, `fillers`
+  // arrivals filling a window
+  __device__ void init(const Plan& p, int fillers) const {
+    using namespace flash_wgmma;
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), 8);  // one per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(winfull(b), fillers);
+      mbar_init(winempty(b), 8);
+    }
+  }
+};
+
+// the weight stages, by one lane: once where they stay resident, else
+// n_stages a tile through the ring, one stage ahead of the consumers
+__device__ __forceinline__ void weight_lane(const Args& a, uint32_t sw,
+                                            const Bars& bars) {
+  using namespace flash_wgmma;
+  const Plan& p = a.p;
+  int g = 0;  // stages issued
+  for (Walker w(p); w.valid(p); w.next(p)) {
+    for (int j = 0; j < p.n_stages; ++j, ++g) {
+      const int s = g % p.stages;
+      if (!p.resident && g >= p.stages)
+        mbar_wait(bars.wempty(s), (g / p.stages - 1) & 1);
+      mbar_expect_tx(bars.wfull(s), p.w_stage);
+      bulk_load(sw + s * p.w_stage,
+                a.w + ((size_t)w.t.ns * p.n_stages + j) * p.w_stage,
+                p.w_stage, bars.wfull(s));
+    }
+    if (p.resident) break;  // loaded once, for every tile
+  }
+}
+
+// weight stages that a producer lane refills, not the consumers
+struct NoRefill {
+  __device__ void operator()(int, int) const {}
+};
+
+// Consumer warpgroup wg (0 or 1) over the block's tiles: wait for the
+// tile's window; for each of its npass N tiles run the 9 x Cin / KP weight
+// stages on wgmma with A from the window by ldmatrix, then the epilogue;
+// release the window after the last pass's products. `refill(s, g)` runs
+// after the warp has released ring slot s of the block's stage g (a
+// consumer that refills the ring itself; reconverged after it). kRing: the
+// window is K7's ring of rows, else the two buffers of win_bytes.
+template <int NR, int KP, bool kRing, class Refill>
+__device__ __forceinline__ void consumer_role(const Args& a, uint32_t swin,
+                                              uint32_t sw, const Bars& bars,
+                                              int wg, const Refill& refill) {
+  using namespace flash_wgmma;
+  constexpr int N = 2 * NR, KS = KP / 32;
+  const Plan& p = a.p;
+  const int rs = a.Cin + kRowPad, row_bytes = p.win_cols * rs;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // this lane's ldmatrix row among the warp's 16, and its 16-byte half
+  const int lrow = 64 * wg + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int khalf = (lane >> 4) * 16;
+  int acc[NR];
+  int gs = 0;  // weight stages consumed
+  for (Walker w(p); w.valid(p); w.next(p)) {
+    const Tile& t = w.t;
+    const int buf = w.it & 1;
+    int img, ohl, owl;
+    const bool mine = pixel_at(a, t, lrow, img, ohl, owl);
+    const int r0 = mine ? img * p.win_rows + ohl * a.stride : 0;
+    const uint32_t col = (mine ? owl * a.stride * rs : 0) + khalf;
+    // the lane's window row at each tap row dh (a ring's rows wrap; the
+    // buffers' follow one another)
+    const uint32_t ar0 =
+        (kRing ? ring_row(p, swin, w, r0, row_bytes)
+               : swin + buf * p.win_bytes + r0 * row_bytes) + col;
+    const uint32_t ar1 = kRing ? ring_row(p, swin, w, r0 + 1, row_bytes) + col
+                               : ar0 + row_bytes;
+    const uint32_t ar2 = kRing ? ring_row(p, swin, w, r0 + 2, row_bytes) + col
+                               : ar0 + 2 * row_bytes;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[i] = 0;
+    mbar_wait(bars.winfull(buf), (w.it >> 1) & 1);
+    const int panels = a.Cin / KP;
+    // A fragments of stage j (tap, panel) from the window, by ldmatrix
+    const auto load_a = [&](unsigned (&af)[KS][4], int j) {
+      const int tap = j / panels, panel = j - tap * panels;
+      const int dh = tap / 3, dw = tap - 3 * dh;
+      const uint32_t at =
+          (kRing ? (dh == 0 ? ar0 : dh == 1 ? ar1 : ar2) : ar0 + dh * row_bytes)
+          + dw * rs + panel * KP;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldsm_x4(af[kk], at + kk * 32);
+    };
+    for (int pass = 0; pass < p.npass; ++pass) {
+      const int ns = t.ns + pass;
+      // stage j's products from af, issued and committed; returns its
+      // ring slot
+      const auto issue = [&](int j, unsigned (&af)[KS][4]) {
+        const int g = gs + j;
+        const int s = p.resident ? pass * p.n_stages + j : g % p.stages;
+        mbar_wait(bars.wfull(s), p.resident ? 0 : (g / p.stages) & 1);
+        const uint32_t wb = sw + s * p.w_stage;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_s8_rs(acc, af[kk],
+                      desc(wb + kk * 256, 128, KP * 8, kNoSwizzle), 1);
+        wgmma_commit();
+        return s;
+      };
+      const auto release = [&](int s, int g) {
+        if (!p.resident && lane == 0) mbar_arrive(bars.wempty(s));
+        refill(s, g);
+      };
+      // stages in pairs: j + 1's products queue behind j's, j + 2's
+      // fragments load while j + 1's run, and no group is in flight
+      // across the loop's back edge
+      unsigned af0[KS][4], af1[KS][4];
+      load_a(af0, 0);
+      const int pairs = p.n_stages / 2;
+      for (int q = 0; q < pairs; ++q) {
+        const int j = 2 * q;
+        const int s0 = issue(j, af0);
+        load_a(af1, j + 1);
+        const int s1 = issue(j + 1, af1);
+        wgmma_wait<1>();  // stage j's products are done: af0 is free
+        fence_regs(af0);
+        release(s0, gs + j);
+        if (j + 2 < p.n_stages) load_a(af0, j + 2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(af1);
+        release(s1, gs + j + 1);
+      }
+      if (p.n_stages & 1) {  // the last, odd stage
+        const int s = issue(p.n_stages - 1, af0);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(af0);
+        release(s, gs + p.n_stages - 1);
+      }
+      gs += p.n_stages;
+      if (pass == p.npass - 1 && lane == 0)
+        mbar_arrive(bars.winempty(buf));  // the window is read
+
+      // accumulator i: row g + 8 ((i >> 1) & 1), channel (i / 4) * 8 + 2t
+      // + i % 2. Lanes t, t ^ 1 swap halves so each holds four consecutive
+      // channels: even t of tile j, odd t of tile j + 1.
+      const bool odd = t4 & 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 64 * wg + 16 * warp + g + 8 * h;
+        const bool valid = pixel_at(a, t, m, img, ohl, owl);
+        const size_t row =
+            valid ? ((((size_t)(t.b0 + img) * a.Ho + t.oh0 + ohl) * a.Wo +
+                      t.ow0 + owl) *
+                     a.Cout)
+                  : 0;
+#pragma unroll
+        for (int j = 0; j < N / 8; j += 2) {
+          const int l0 = acc[4 * j + 2 * h], l1 = acc[4 * j + 2 * h + 1];
+          const int h0 = acc[4 * j + 4 + 2 * h], h1 = acc[4 * j + 5 + 2 * h];
+          const int r0 = __shfl_xor_sync(0xffffffffu, odd ? l0 : h0, 1);
+          const int r1 = __shfl_xor_sync(0xffffffffu, odd ? l1 : h1, 1);
+          const int v[4] = {odd ? r0 : l0, odd ? r1 : l1, odd ? h0 : r0,
+                            odd ? h1 : r1};
+          const int n = ns * N + (odd ? 8 * (j + 1) + 2 * (t4 - 1)
+                                      : 8 * j + 2 * t4);
+          if (valid && n < a.Cout) store4(a, row, n, v);
+        }
+      }
+      if (pass + 1 < p.npass) {
+#pragma unroll
+        for (int i = 0; i < NR; ++i) acc[i] = 0;
+      }
+    }
+  }
+}
+
 // NR accumulator registers per thread: N = 2 NR output channels a tile;
 // KP input channels a weight stage (KS = KP / 32 k steps)
 template <int NR, int KP>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_kernel(const __grid_constant__ Args a) {
   using namespace flash_wgmma;
-  constexpr int N = 2 * NR, KS = KP / 32;
   const Plan& p = a.p;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t swin = (raw + kAlign - 1) & ~uint32_t(kAlign - 1);
-  const uint32_t sw = swin + 2 * p.win_bytes;        // weight stages
-  const uint32_t sbar = sw + p.stages * p.w_stage;
-  const auto wfull = [&](int s) { return sbar + 8 * s; };
-  const auto wempty = [&](int s) { return sbar + 8 * (kMaxStages + s); };
-  const auto winfull = [&](int b) { return sbar + 8 * (2 * kMaxStages + b); };
-  const auto winempty = [&](int b) { return sbar + 8 * (2 * kMaxStages + 2 + b); };
+  const uint32_t sw = swin + 2 * p.win_bytes;  // weight stages
+  const Bars bars{sw + p.stages * p.w_stage, kMaxStages};
   const int rs = a.Cin + kRowPad;
-  const int wpos = p.win_rows * p.win_cols;  // window positions an image
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < p.stages; ++s) {
-      mbar_init(wfull(s), 1);
-      mbar_init(wempty(s), 8);  // one per consumer warp
-    }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(winfull(b), kLoaders);
-      mbar_init(winempty(b), 8);
-    }
+    bars.init(p, kLoaders);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -276,20 +535,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const int pt = threadIdx.x - 256;
     if (pt == 0) {  // the weight stages, by one lane
-      int g = 0;    // stages issued
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int ns = tile_at(p, tile).ns;
-        for (int j = 0; j < p.n_stages; ++j, ++g) {
-          const int s = g % p.stages;
-          if (!p.resident && g >= p.stages)
-            mbar_wait(wempty(s), (g / p.stages - 1) & 1);
-          mbar_expect_tx(wfull(s), p.w_stage);
-          bulk_load(sw + s * p.w_stage,
-                    a.w + ((size_t)ns * p.n_stages + j) * p.w_stage,
-                    p.w_stage, wfull(s));
-        }
-        if (p.resident) break;  // loaded once, for every tile
-      }
+      weight_lane(a, sw, bars);
       return;
     }
     if (pt < 32) return;
@@ -301,11 +547,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool pow2 = (cpr & (cpr - 1)) == 0;
     const int shift = __ffs(cpr) - 1;
     const int row_chunks = p.win_cols * cpr;
-    int it = 0;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
-      const int buf = it & 1;
-      if (it >= 2) mbar_wait(winempty(buf), ((it - 2) >> 1) & 1);
-      const Tile t = tile_at(p, tile);
+    for (Walker w(p); w.valid(p); w.next(p)) {
+      const int buf = w.it & 1;
+      if (w.it >= 2) mbar_wait(bars.winempty(buf), ((w.it - 2) >> 1) & 1);
+      const Tile& t = w.t;
       const int ih0 = t.oh0 * a.stride - 1, iw0 = t.ow0 * a.stride - 1;
       uint32_t dst = swin + buf * p.win_bytes;  // the row's first position
       for (int img = 0; img < p.ipt; ++img) {
@@ -324,116 +569,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      cp_async_arrive(winfull(buf));
+      cp_async_arrive(bars.winfull(buf));
     }
     return;
   }
 
   // -------------------------------------------------- consumer warpgroups
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  // this lane's ldmatrix row among the warp's 16, and its 16-byte half
-  const int lrow = 64 * wg + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int khalf = (lane >> 4) * 16;
-  int acc[NR];
-  int it = 0, gs = 0;  // tiles done, weight stages consumed
-  for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, ++it) {
-    const Tile t = tile_at(p, tile);
-    const int buf = it & 1;
-    int img, ohl, owl;
-    const int pos0 = pixel_at(a, t, lrow, img, ohl, owl)
-                         ? img * wpos + ohl * a.stride * p.win_cols +
-                               owl * a.stride
-                         : 0;
-    const uint32_t arow = swin + buf * p.win_bytes + pos0 * rs + khalf;
-#pragma unroll
-    for (int i = 0; i < NR; ++i) acc[i] = 0;
-    mbar_wait(winfull(buf), (it >> 1) & 1);
-    const int panels = a.Cin / KP;
-    // A fragments of stage j (tap, panel) from the window, by ldmatrix
-    const auto load_a = [&](unsigned (&af)[KS][4], int j) {
-      const int tap = j / panels, panel = j - tap * panels;
-      const uint32_t at =
-          arow + ((tap / 3) * p.win_cols + tap % 3) * rs + panel * KP;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) ldsm_x4(af[kk], at + kk * 32);
-    };
-    // stage j's products from af, issued and committed; returns its ring
-    // slot
-    const auto issue = [&](int j, unsigned (&af)[KS][4]) {
-      const int g = gs + j;
-      const int s = p.resident ? j : g % p.stages;
-      mbar_wait(wfull(s), p.resident ? 0 : (g / p.stages) & 1);
-      const uint32_t wb = sw + s * p.w_stage;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        wgmma_s8_rs(acc, af[kk],
-                    desc(wb + kk * 256, 128, KP * 8, kNoSwizzle), 1);
-      wgmma_commit();
-      return s;
-    };
-    const auto release = [&](int s) {
-      if (!p.resident && lane == 0) mbar_arrive(wempty(s));
-    };
-    // stages in pairs: j + 1's products queue behind j's, j + 2's
-    // fragments load while j + 1's run, and no group is in flight across
-    // the loop's back edge
-    unsigned af0[KS][4], af1[KS][4];
-    load_a(af0, 0);
-    const int pairs = p.n_stages / 2;
-    for (int q = 0; q < pairs; ++q) {
-      const int j = 2 * q;
-      const int s0 = issue(j, af0);
-      load_a(af1, j + 1);
-      const int s1 = issue(j + 1, af1);
-      wgmma_wait<1>();  // stage j's products are done: af0 is free
-      fence_regs(af0);
-      release(s0);
-      if (j + 2 < p.n_stages) load_a(af0, j + 2);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(af1);
-      release(s1);
-    }
-    if (p.n_stages & 1) {  // the last, odd stage
-      const int s = issue(p.n_stages - 1, af0);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(af0);
-      release(s);
-    }
-    gs += p.n_stages;
-    if (lane == 0) mbar_arrive(winempty(buf));  // the window is read
-
-    // accumulator i: row g + 8 ((i >> 1) & 1), channel (i / 4) * 8 + 2t +
-    // i % 2. Lanes t, t ^ 1 swap halves so each holds four consecutive
-    // channels: even t of tile j, odd t of tile j + 1.
-    const bool odd = t4 & 1;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = 64 * wg + 16 * warp + g + 8 * h;
-      const bool valid = pixel_at(a, t, m, img, ohl, owl);
-      const size_t row =
-          valid ? ((((size_t)(t.b0 + img) * a.Ho + t.oh0 + ohl) * a.Wo +
-                    t.ow0 + owl) *
-                   a.Cout)
-                : 0;
-#pragma unroll
-      for (int j = 0; j < N / 8; j += 2) {
-        const int l0 = acc[4 * j + 2 * h], l1 = acc[4 * j + 2 * h + 1];
-        const int h0 = acc[4 * j + 4 + 2 * h], h1 = acc[4 * j + 5 + 2 * h];
-        const int r0 = __shfl_xor_sync(0xffffffffu, odd ? l0 : h0, 1);
-        const int r1 = __shfl_xor_sync(0xffffffffu, odd ? l1 : h1, 1);
-        const int v[4] = {odd ? r0 : l0, odd ? r1 : l1, odd ? h0 : r0,
-                          odd ? h1 : r1};
-        const int n = t.ns * N + (odd ? 8 * (j + 1) + 2 * (t4 - 1)
-                                      : 8 * j + 2 * t4);
-        if (valid && n < a.Cout) store4(a, row, n, v);
-      }
-    }
-  }
+  consumer_role<NR, KP, false>(a, swin, sw, bars, wg, NoRefill{});
 }
 
 template <int NR, int KP>

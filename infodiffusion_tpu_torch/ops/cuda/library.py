@@ -34,6 +34,8 @@ NVCC_FLAGS = ARCH_FLAGS + [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the kernels' entry points (csrc/*.cu)
 _SIGNATURES = {
     "infodiff_adagn": [_P] * 12,
@@ -50,7 +52,9 @@ _SIGNATURES = {
     "infodiff_flash_attention_online": [_P] * 4 + [_I] * 6 + [_P],
     "infodiff_flash_attention_bwd": [_P] * 8 + [_I] * 10 + [_P],
     "infodiff_int8_conv": [_P] * 6 + [_I] * 13 + [_P],
-    "infodiff_qconv": [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 6 + [_P],
+    "infodiff_qconv": [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 13 + [_P],
+    "infodiff_qconv_v2": [_P] * 2 + [_I] * 3 + [_P] * 7 + [_I] * 13 + [_P],
+    "infodiff_qconv_chain_check": [_I, _F, _P, _P, _L, _P, _P],
     "infodiff_shortcut_fused": [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] * 7
                                + [_P],
     "infodiff_latent_mlp": [_P] * 10 + [_I] * 11 + [_P],

@@ -4,11 +4,13 @@ versions.
 
 Replaces ``infodiffusion_tpu/ops/pallas/qconv.py`` (``qconv_fused``, bodies
 ``_kernel`` and ``_kernel_v2``) and the XLA int8 conv of
-``infodiffusion_tpu/ops/quant.py`` (``int8_conv``). Both are one kernel,
-``csrc/qconv.cu``: an int8 implicit-GEMM conv on the tensor cores with a
-chain prologue (K7: ``qconv_cuda``, and ``qconv_v2_cuda``, the pipelined
-body) or a chainless one (``int8_conv_cuda``, the tier's default route).
-What bounds it and what its design does about that: see the source.
+``infodiffusion_tpu/ops/quant.py`` (``int8_conv``). Both run on one
+warpgroup core, ``csrc/int8_conv_wgmma.cuh``: an int8 implicit-GEMM conv on
+the tensor cores whose window a producer fills, by copying int8 input (the
+chainless conv, ``int8_conv_cuda``, the tier's default route) or by running
+the chain on the raw pieces (K7: ``qconv_cuda``, ``csrc/qconv.cu``, and
+``qconv_v2_cuda``, the pipelined body, ``csrc/qconv_v2.cu``). What bounds
+them and what their design does about it: see the sources.
 
 What K7 computes (NHWC):
 
@@ -24,9 +26,10 @@ one-unit int8 flips; see ``qconv_fused``.
 
 The port's gate (``fused_qconv_supported``) keeps the JAX package's shape
 rules and drops the Mosaic ones (W <= 256, the VMEM tile planner); it adds
-one of its own: each piece's channels a multiple of 8 (the kernel stages
-16-byte vectors). The weight prep (``_fold_pack``) runs in plain torch at
-every call, as the JAX package runs it in XLA at every apply.
+one of its own: each piece's channels a multiple of 8 (the chain reads
+16-byte vectors of eight channels). The weight prep (``_fold_pack``) runs in
+plain torch at every call, as the JAX package runs it in XLA at every
+apply.
 """
 
 from __future__ import annotations
@@ -317,6 +320,120 @@ def int8_conv_cuda(xq: torch.Tensor, kq: torch.Tensor, stride: int = 1, *,
 int8_conv_cuda.launches = 0
 
 
+_QBAR_BYTES = 1792      # K7's mbarriers (csrc/qconv_wgmma.cuh)
+_QMAX_STAGES = 72       # K7's weight stages the barriers allow
+_MAX_RAW = 64           # K7 v2's raw-row ring slots the barriers allow
+_QRING = 8              # K7's streamed weight stages at most
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _round128(b: int) -> int:
+    return _cdiv(b, 128) * 128
+
+
+def qconv_cin(ctot: int) -> int:
+    """The input channels K7 runs at: ``ctot`` zero-padded to a multiple
+    of 64, the least weight stage's panel."""
+    return _cdiv(ctot, 64) * 64
+
+
+@functools.lru_cache(maxsize=None)
+def qconv_launch_plan(B: int, H: int, W: int, ctot: int, cout: int,
+                      dtype: torch.dtype, pipelined: bool) -> dict:
+    """What K7 launches for pieces of ``ctot`` channels [B, H, W] in
+    ``dtype`` to ``cout`` channels, body v1 or (``pipelined``) v2
+    (``csrc/qconv_wgmma.cuh`` make_qconv_plan, whose entry refuses any
+    other plan). The int8 conv's tile (``ipt`` whole images where H x W <=
+    128, else ``th`` rows of ``tw`` columns); Cout in one N tile of ``n``
+    = 64 or 128 up to 128, beyond that ``npass`` tiles of 128 run one
+    after another from the tile's window (``nsplit``, the weight layout's,
+    is the same); weight stages of ``kp`` channels (a 64-wide tile's all of
+    ``cin`` = :func:`qconv_cin` up to 192, else 128 where they divide it,
+    else 64), ``n_stages`` a pass; the window
+    ring's ``ring`` row slots of ``win_cols`` positions (two windows, or one
+    window and a tile's new rows); v2's ``raw_rows`` staged raw rows of
+    ``raw_row_bytes`` (two fills' or one fill's); the weights ``resident``
+    or in a ring of 8 .. 2 ``stages``; ``smem`` bytes. The walks: each (image
+    group, column strip) cuts its ``row_tiles`` into ``segs`` segments of
+    ``rps`` tiles, ``walks`` in all on ``blocks`` persistent blocks of
+    ``threads``, a walk quantizing each of its rows once for all of Cout
+    (``carry`` = 2 rows a tile passes on). Raises where nothing fits.
+    Cached: the dict is shared, so callers read it only."""
+    if min(B, H, W, cout) < 1 or ctot < 8 or ctot % 8 or dtype not in _ELEM:
+        raise ValueError(f"K7 takes no plan for B={B} {H}x{W} Ctot={ctot} "
+                         f"Cout={cout} {dtype}")
+    elem = _ELEM[dtype]
+    cin = qconv_cin(ctot)
+    rs = cin + _ROW_PAD
+    n = 64 if cout <= 64 else 128
+    kp = cin if n == 64 and cin <= 192 else 128 if cin % 128 == 0 else 64
+    npass = _cdiv(cout, n)
+    if H * W <= _BM:
+        th, tw, ipt = H, W, min(B, _BM // (H * W))
+    else:
+        tw = min(W, _BM)
+        th, ipt = _BM // tw, 1
+    w_stage, n_stages = n * kp, 9 * (cin // kp)
+    while True:
+        win_rows, win_cols = th + 2, tw + 2
+        row_tiles, col_tiles = _cdiv(H, th), _cdiv(W, tw)
+        row_bytes = win_cols * rs
+        wr = ipt * win_rows
+        rows = row_tiles > 1
+        raw_row_bytes = (_round128(min(win_cols, W) * ctot * elem)
+                         if pipelined else 0)
+        ab = _round128(8 * ctot * ipt)
+        rings = [2 * wr] + ([wr + th] if rows else [])
+        raws = ([max(2 * th, th + 2), th + 2] if rows
+                else [2 * ipt * H, ipt * H]) if pipelined else [0, 0]
+        found = None
+        for ring in rings:
+            for raw_rows in raws:
+                if raw_rows > _MAX_RAW:
+                    continue
+                fixed = (_ALIGN + _round128(ring * row_bytes)
+                         + raw_rows * raw_row_bytes + ab + _QBAR_BYTES)
+                every = npass * n_stages
+                resident = (every <= _QMAX_STAGES
+                            and fixed + every * w_stage <= _SMEM_LIMIT)
+                stages = every if resident else next(
+                    (s for s in range(_QRING, 1, -1)
+                     if fixed + s * w_stage <= _SMEM_LIMIT), 0)
+                if stages:
+                    found = (ring, raw_rows, resident, stages,
+                             fixed + stages * w_stage)
+                    break
+            if found:
+                break
+        if found:
+            break
+        if ipt > 1:
+            ipt = _cdiv(ipt, 2)
+        elif th > 1:
+            th = _cdiv(th, 2)
+        elif tw > 8:
+            tw = _cdiv(tw, 2)
+        else:
+            raise ValueError(f"K7: no tile fits the shared memory at "
+                             f"{H}x{W} Ctot={ctot} Cout={cout} {dtype}")
+    ring, raw_rows, resident, stages, smem = found
+    groups = _cdiv(B, ipt)
+    strips = groups * col_tiles
+    segs = min(row_tiles, max(1, _SMS // strips))
+    rps = _cdiv(row_tiles, segs)
+    segs = _cdiv(row_tiles, rps)
+    walks = strips * segs
+    return dict(cin=cin, kp=kp, n=n, npass=npass, nsplit=npass, ipt=ipt,
+                th=th, tw=tw,
+                win_rows=win_rows, win_cols=win_cols, row_bytes=row_bytes,
+                ring=ring, raw_rows=raw_rows, raw_row_bytes=raw_row_bytes,
+                ab_bytes=ab, w_stage=w_stage, n_stages=n_stages,
+                stages=stages, resident=resident, smem=smem, groups=groups,
+                row_tiles=row_tiles, col_tiles=col_tiles, segs=segs, rps=rps,
+                walks=walks, tiles=strips * row_tiles,
+                blocks=min(walks, _SMS), threads=512, carry=2 if rows else 0)
+
+
 def _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
                   pipelined: bool) -> torch.Tensor:
     pieces = list(pieces)
@@ -337,10 +454,14 @@ def _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
     Bt, H, W, _ = pieces[0].shape
     cs = [int(p.shape[3]) for p in pieces]
     ctot, cout = sum(cs), int(sw.shape[0])
-    w = kmat.reshape(3, ctot, 3, cout).permute(3, 2, 0, 1).reshape(
-        cout, 9, ctot).contiguous()
+    plan = qconv_launch_plan(Bt, H, W, ctot, cout, dtype, pipelined)
+    _lib.check_tensor(kmat, "kmat", shape=(3 * ctot, 3 * cout),
+                      dtypes=(torch.int8,), device=dev)
+    # kmat[dw*Ctot + c, dh*Cout + o] = kq[dh, dw, c, o]: the int8 conv's
+    # weight stages from the HWIO view
+    w = int8_conv_weights(kmat.view(3, ctot, 3, cout).permute(2, 0, 1, 3),
+                          plan["cin"], plan)
     f32 = (torch.float32,)
-    _lib.check_tensor(w, "kmat", dtypes=(torch.int8,), device=dev)
     for name, t in (("A", A), ("B", B)):
         _lib.check_tensor(t, name, shape=(Bt, ctot), dtypes=f32, device=dev)
     _lib.check_tensor(s_act, "s_act", shape=(len(pieces),), dtypes=f32,
@@ -349,18 +470,47 @@ def _launch_qconv(pieces, A, B, s_act, kmat, sw, bias, out_dtype,
     _lib.check_tensor(bias, "bias", shape=(cout,), dtypes=f32, device=dev)
     out = torch.empty((Bt, H, W, cout), dtype=out_dtype, device=dev)
     lib = _lib.library().lib
+    entry = lib.infodiff_qconv_v2 if pipelined else lib.infodiff_qconv
     with torch.cuda.device(dev):
-        err = lib.infodiff_qconv(
+        err = entry(
             pieces[0].data_ptr(),
             pieces[1].data_ptr() if len(pieces) > 1 else None,
             cs[0], cs[1] if len(pieces) > 1 else 0, _lib.DTYPE_CODES[dtype],
             A.data_ptr(), B.data_ptr(), s_act.data_ptr(), w.data_ptr(),
             sw.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _lib.DTYPE_CODES[out_dtype], Bt, H, W, cout, int(pipelined),
+            _lib.DTYPE_CODES[out_dtype], Bt, H, W, cout, plan["ipt"],
+            plan["th"], plan["tw"], plan["ring"], plan["raw_rows"],
+            plan["stages"], plan["smem"], plan["blocks"],
             _lib.stream_handle(),
         )
     _lib.check_launch(err, "qconv_v2" if pipelined else "qconv")
     return out
+
+
+def qconv_chain_check(mode: int, s: float, x: Optional[torch.Tensor] = None,
+                      ab: Optional[torch.Tensor] = None) -> int:
+    """K7's chain against its exact form on the card
+    (``csrc/qconv.cu`` ``infodiff_qconv_chain_check``): the mismatching
+    values of mode 0, the branch-free 1 / d against ``__fdiv_rn`` for every
+    float d in [1, 2^60); mode 1, the branch-free a / s for every float
+    |a| in [2^-60, 2^60) of both signs; mode 2, the chain of eight channels
+    (fast divides, exact fallback) against ``quant_chain`` on the f32 CUDA
+    values ``x`` (a multiple of 8), with A and B the 16 floats ``ab``."""
+    dev = x.device if x is not None else torch.device("cuda")
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    if mode == 2:
+        _lib.check_tensor(x, "x", dtypes=(torch.float32,))
+        _lib.check_tensor(ab, "ab", shape=(16,), dtypes=(torch.float32,),
+                          device=dev)
+    lib = _lib.library().lib
+    with torch.cuda.device(dev):
+        err = lib.infodiff_qconv_chain_check(
+            mode, float(s), x.data_ptr() if x is not None else None,
+            ab.data_ptr() if ab is not None else None,
+            x.numel() if x is not None else 0, bad.data_ptr(),
+            _lib.stream_handle())
+    _lib.check_launch(err, "qconv_chain_check")
+    return int(bad.item())
 
 
 def qconv_cuda(pieces, A, B, s_act, kmat, sw, bias,
