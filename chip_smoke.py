@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE, 512px and ch-32 (mnist, chairs) paths on one NVIDIA GPU.
+VAE, 512px, ch-32 (mnist, chairs) and command-line paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -154,6 +154,16 @@ on the card. Phases, each printing one line or a few, any failure raising:
    per-forward route (it warns and samples unquantized through K5), B=64;
    exact launches per kernel at C=64; then the mnist loss and every
    gradient leaf, f32, B=2, card against CPU.
+19. the command line: ``python -m infodiffusion_tpu_torch``'s code path
+   (``cli.main`` in-process, in a temporary directory) at the flagship's
+   full width, bf16, on 512 synthetic celeba images: train -e 1 (4 steps
+   at B=128), train -e 2 --resume (4 more), save_latent, train_latent_ddim,
+   eval_fid --is_latent (the latent prior, then DDIM-100 at B=128, 128
+   PNGs), interpolate and eval at DDIM-10; each mode's wall seconds and
+   exact launches per kernel; checks the checkpoints (epoch 2 at step 8),
+   the metrics' losses, the [512, 256] f32 latents (the first batch against
+   the pipeline's encode on the saved checkpoint), the PNG counts and
+   headers, and prints the loader's H2D bytes a batch.
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
 
@@ -3128,6 +3138,195 @@ def c64_card_vs_cpu(device):
                              f"{TOL['slice']:.0e}")
 
 
+# phase 19: the user's entry path, ``python -m infodiffusion_tpu_torch``
+# (cli.main in-process), at the flagship's full width (celeba: AuxiliaryUNet
+# ch 64, ch_mult (1,2,2,2), attention at level 2, a_dim 256, T 1000), bf16,
+# on INFODIFF_SYNTHETIC_N synthetic images
+CLI_N, CLI_BATCH, CLI_STEPS = 512, 128, 10
+CLI_COMMON = ["--model", "diff", "--prior", "regular", "--dataset", "celeba",
+              "--a_dim", str(A_DIM), "--data_dir", "synthetic", "--bf16",
+              "--batch_size", str(CLI_BATCH), "--r_seed", "7"]
+# (label, flags): trains 4 steps, resumes for 4 more, encodes the 512
+# images, trains the prior on their latents, then the latent prior and
+# DDIM-100 at B=128 into 128 FID PNGs, interpolate and eval at DDIM-10
+CLI_MODES = (
+    ("train -e 1", ["--mode", "train", "-e", "1", "--save_epochs", "1"]),
+    ("train -e 2 --resume", ["--mode", "train", "-e", "2", "--save_epochs",
+                             "1", "--resume"]),
+    ("save_latent", ["--mode", "save_latent", "-e", "2"]),
+    ("train_latent_ddim", ["--mode", "train_latent_ddim", "-e", "2",
+                           "--save_epochs", "2"]),
+    ("eval_fid --is_latent", ["--mode", "eval_fid", "-e", "2", "--is_latent",
+                              "--sampling_steps", "100",
+                              "--sampling_number", str(CLI_BATCH)]),
+    ("interpolate", ["--mode", "interpolate", "-e", "2", "--sampling_steps",
+                     str(CLI_STEPS)]),
+    ("eval", ["--mode", "eval", "-e", "2", "--sampling_steps",
+              str(CLI_STEPS)]),
+)
+
+
+def cli_expected(model):
+    """Exact launches per mode of CLI_MODES, from the flagship's structure:
+    K1 once at every GroupNorm (the ResBlock norms and the attention
+    blocks' norm) of a UNet or Encoder forward and K1-bwd once at each in
+    the backward, K2 once at every attention block (C=128: 256 tokens at
+    level 2, 64 in the middle block), K3b on the dense contract (below the
+    512-token gate) once at each in the backward; K4 once a latent
+    trajectory. The latent prior's training runs no kernel."""
+    from infodiffusion_tpu_torch.nn.attention import _GN, AttnBlock
+    from infodiffusion_tpu_torch.nn.blocks import _GNParams
+
+    def count(module, kinds):
+        return sum(isinstance(m, kinds) for m in module.modules())
+
+    gn_u, gn_e = (count(m, (_GNParams, _GN))
+                  for m in (model.backbone, model.encoder))
+    at_u, at_e = (count(m, AttnBlock) for m in (model.backbone, model.encoder))
+    steps = CLI_N // CLI_BATCH  # a training epoch
+
+    def run(k1=0, k1_bwd=0, k2=0, dense=0, k4=0):
+        return {"adagn": k1, "adagn_bwd": k1_bwd, "attention": k2,
+                contract_key("dense"): dense, contract_key("flash"): 0,
+                "latent_traj": k4, "flash_attention": 0,
+                "latent_traj_int8": 0, "latent_mlp": 0, "qconv": 0,
+                "int8_conv": 0, "shortcut_fused": 0}
+
+    train = run(k1=steps * (gn_u + gn_e), k1_bwd=steps * (gn_u + gn_e),
+                k2=steps * (at_u + at_e), dense=steps * (at_u + at_e))
+    reverse = T - 2  # DDIM encoding over idx 1 .. T-2
+    evals = len(range(0, 16, CLI_BATCH))  # eval: 16 samples a batch step
+    return {
+        "train -e 1": train, "train -e 2 --resume": train,
+        "save_latent": run(k1=steps * gn_e, k2=steps * at_e),
+        "train_latent_ddim": run(),
+        "eval_fid --is_latent": run(k1=100 * gn_u, k2=100 * at_u, k4=1),
+        "interpolate": run(k1=gn_e + (reverse + CLI_STEPS) * gn_u,
+                           k2=at_e + (reverse + CLI_STEPS) * at_u),
+        "eval": run(k1=evals * CLI_STEPS * gn_u, k2=evals * CLI_STEPS * at_u),
+    }
+
+
+def png_shape(path):
+    """(height, width, channels) of a PNG the port wrote, from its header,
+    and whether its pixel rows inflate to that size."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h, depth, ctype = struct.unpack(">IIBB", data[16:26])
+    c = {0: 1, 2: 3, 6: 4}[ctype]
+    idat, pos = b"", 8
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if depth != 8 or len(zlib.decompress(idat)) != h * (1 + w * c):
+        raise AssertionError(f"{path}: pixel data does not match {h}x{w}x{c}")
+    return h, w, c
+
+
+def cli_path(device, smi):
+    """Phase 19: run.py's command line through the port's own entry point,
+    one mode after another in a temporary directory; checks the
+    checkpoints (epoch 2 at step 8), the metrics, the latents, the PNGs,
+    the CLI's latents against the pipeline's encode of the same images,
+    and the exact launches per mode. Returns the launches, summed."""
+    import shutil
+    import tempfile
+
+    from infodiffusion_tpu_torch import cli
+    from infodiffusion_tpu_torch.data.datasets import get_dataset
+    from infodiffusion_tpu_torch.data.loader import (
+        DataLoader,
+        h2d_bytes_per_batch,
+    )
+
+    cfg = cli.parse_args(CLI_COMMON + ["--mode", "train"]).with_dataset_config()
+    probe = build_model(cfg, device="cpu")
+    want = cli_expected(probe)
+    del probe
+    total = dict.fromkeys(KERNELS, 0)
+    total.update({contract_key(c): 0 for c in ("flash", "dense")})
+    cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix="infodiff_cli_")
+    try:
+        os.chdir(work)
+        with env_set({"INFODIFF_SYNTHETIC_N": str(CLI_N)}):
+            for label, flags in CLI_MODES:
+                _, dt, n = timed(lambda: cli.main(CLI_COMMON + flags))
+                print(f"[cli] {label}: {dt:.2f} s wall (host clock, "
+                      f"synchronised; {smi}); launches "
+                      f"{ {k: v for k, v in n.items() if v} }")
+                expect(f"cli {label}", n, want[label])
+                for k in total:
+                    total[k] += n[k]
+            root = os.path.join("models", "celeba_256d_0.1mmd")
+            steps = {}
+            for e in (1, 2):
+                with open(os.path.join(root, f"model-{e}", "meta.json")) as f:
+                    steps[e] = json.load(f)["step"]
+            per_epoch = CLI_N // CLI_BATCH
+            if steps != {1: per_epoch, 2: 2 * per_epoch}:
+                raise AssertionError(f"cli checkpoints: steps {steps}")
+            with open(os.path.join("logs", "celeba_256d_0.1mmd",
+                                   "metrics.jsonl")) as f:
+                losses = [json.loads(line)["train/loss"] for line in f]
+            if len(losses) != 2 or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"cli metrics: losses {losses}")
+            npz = np.load("diff_celeba_256d_0_1mmd_latent.npz",
+                          allow_pickle=True)
+            all_a = npz["all_a"]
+            if (all_a.shape, all_a.dtype) != ((CLI_N, A_DIM), np.float32) \
+                    or not np.isfinite(all_a).all():
+                raise AssertionError(f"cli latents {all_a.shape} "
+                                     f"{all_a.dtype}")
+            img = os.path.join("imgs", "celeba_256d_0.1mmd")
+            fid = sorted(os.listdir(os.path.join(img, "eval-fid-latent")))
+            pngs = {"eval-fid-latent": len(fid), "interpolate-0": len(
+                os.listdir(os.path.join(img, "interpolate-0"))),
+                "eval": len(os.listdir(os.path.join(img, "eval")))}
+            if pngs != {"eval-fid-latent": CLI_BATCH, "interpolate-0": 1,
+                        "eval": len(range(0, 16, CLI_BATCH))} \
+                    or fid[-1] != f"sample-{CLI_BATCH - 1:06d}.png":
+                raise AssertionError(f"cli PNGs {pngs}")
+            shapes = {png_shape(os.path.join(img, "eval-fid-latent", fid[0])),
+                      png_shape(os.path.join(img, "interpolate-0",
+                                             "sample0.png"))}
+            if shapes != {(SIZE, SIZE, 3), (SIZE + 4, 10 * (SIZE + 2) + 2, 3)}:
+                raise AssertionError(f"cli PNG shapes {shapes}")
+            # the CLI's latents against the pipeline's encode of the same
+            # first batch, on the checkpoint the CLI saved
+            pipe = InfoDiffusionPipeline.from_checkpoint(
+                cli.parse_args(CLI_COMMON + ["--mode", "eval", "-e", "2"]),
+                device=device)
+            # save_latent's loader: no shuffle, celeba's flips from r_seed
+            loader = DataLoader(get_dataset(cfg), CLI_BATCH, device=device,
+                                flip=True, seed=cfg.r_seed)
+            x = next(iter(loader))
+            abs_e, rel_e = rel_err(pipe.encode(x), torch.from_numpy(
+                all_a[:CLI_BATCH]))
+            h2d = h2d_bytes_per_batch(loader)
+            print(f"[cli] checkpoints model-1 step {steps[1]}, model-2 step "
+                  f"{steps[2]}; losses {losses}; latents {all_a.shape} f32; "
+                  f"PNGs {pngs}; the CLI's latents against the pipeline's "
+                  f"encode: rel err {rel_e:.2e} (abs {abs_e:.2e}); loader "
+                  f"H2D {h2d} bytes a batch as uint8 ({4 * h2d} as f32)")
+            if not rel_e <= TOL["f32"]:
+                raise AssertionError(f"cli latents against the pipeline: "
+                                     f"{rel_e:.3e}")
+            del pipe, loader, x
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return total
+
+
 class Results:
     """Per-kernel errors and times; a check over its bar raises at once."""
 
@@ -3222,7 +3421,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-18) to run after 1 "
+                        help="comma-separated phases (3-19) to run after 1 "
                              "and 2; default all, which also prints the "
                              "kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -3339,6 +3538,8 @@ def main() -> None:
         by_path.update(c64_paths(device, smi))
         torch.cuda.empty_cache()
         c64_card_vs_cpu(device)
+    if run(19):
+        by_path["cli"] = cli_path(device, smi)
     run(None)  # the last phase's time
     if not only:
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))

@@ -17,11 +17,18 @@ and class names so each counterpart is found at once:
   kernel (``csrc/``, bound in ``ops/cuda``) beside its plain PyTorch
   version, the int8 tier and the MMD. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises.
-- ``train``: the clip + AdamW optimizer, the LR schedule, the train state
-  and the train step.
-- ``utils``: the prior draws.
+- ``train``: the clip + AdamW optimizer, the LR schedule, the train state,
+  the train step and the checkpoints (``checkpoint``).
+- ``data``: the datasets (the synthetic sets and the on-disk readers) and
+  the loader that ships uint8 to the card.
+- ``cli`` and ``runner`` (``python -m infodiffusion_tpu_torch <run.py
+  flags>``): every mode of the JAX CLI but ``attr_classification``, with
+  ``imaging`` (PNG grids, written with the standard library) and
+  ``logging_utils`` (the metrics JSONL).
+- ``utils``: the prior draws, the slerp helpers, seeding and the console
+  meters.
 - ``pipelines``: ``InfoDiffusionPipeline`` (generate, encode, invert,
-  reconstruct, traverse, interpolate).
+  reconstruct, traverse, interpolate; ``from_checkpoint``).
 - ``interop``: ``from_jax_params`` moves a Flax param tree into the port's
   modules, which carry the same names.
 

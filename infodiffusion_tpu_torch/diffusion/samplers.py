@@ -17,10 +17,11 @@ per-forward route (K5) is asked for.
 - ``DiffusionProcess``: the image sampler over an InfoDiff (conditioned on
   ``a``) or a vanilla ``Diff`` (``cfg.model == 'vanilla'``), ``sampling``
   and ``reverse_sampling`` (with the reference's D13 quirk behind
-  ``cfg.reverse_reference_quirk``), and the int8 turbo tier for InfoDiff
+  ``cfg.reverse_reference_quirk``), and the int8 turbo tier
   (``turbo='int8'``: W8A8 UNet conv bodies).
 - ``TwoPhaseDiffusionProcess``: an InfoDiff and a vanilla Diff, sampling
-  in two phases and reverse sampling through the InfoDiff.
+  in two phases and reverse sampling through the InfoDiff, both models on
+  the int8 tier under ``turbo='int8'``.
 - ``LatentDiffusionProcess``: sampling and reverse sampling of the latent
   prior on the route ``latent_route`` picks: the trajectory kernel K4
   (``turbo='int8'`` streams int8 weights), or, with
@@ -201,12 +202,48 @@ def _resolve_turbo(cfg, turbo: Optional[str]) -> str:
     return mode
 
 
-def _no_turbo(mode: str, what: str) -> None:
-    if mode:
-        raise NotImplementedError(
-            f"turbo={mode!r} is not ported for {what}: the port's int8 tier "
-            f"covers InfoDiff generation only (ROADMAP.md, Queue 1, the "
-            f"int8 tier for the vanilla Diff and two-phase sampling)")
+def _calibrated(cfg, model, data_shape, a_dim, mode: str) -> dict:
+    """The quant state of ``model`` calibrated for ``mode`` ({} when off),
+    left off the model."""
+    if not mode:
+        return {}
+    q8.calibrate(model, data_shape, a_dim=a_dim, T=cfg.diffusion_steps,
+                 mode=mode)
+    state = q8.quant_state(model)
+    q8.clear_quant_state(model)
+    return state
+
+
+class _Installed:
+    """Installs one model's quant state at a time, for as long as that
+    model runs: ``wrap(model, fn)`` returns ``fn`` behind a switch that
+    installs ``states[model]`` (dropping the other model's) when the
+    trajectory moves to ``model``; leaving the block clears both."""
+
+    def __init__(self, states):
+        self.states = states
+        self.on = None
+
+    def wrap(self, model, fn):
+        def run(*args):
+            if self.on is not model:
+                self._clear()
+                q8.load_quant_state(model, self.states[model])
+                self.on = model
+            return fn(*args)
+
+        return run
+
+    def _clear(self):
+        if self.on is not None:
+            q8.clear_quant_state(self.on)
+            self.on = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._clear()
 
 
 def _requirk_eps_fn(model, generator: torch.Generator) -> Callable:
@@ -253,27 +290,23 @@ class DiffusionProcess:
     and installs it on the model's modules for the length of each
     ``sampling`` / ``reverse_sampling`` call only, so the model is left
     without it (training and other processes over the same model never see
-    it). The tier is not ported for the vanilla Diff: it raises."""
+    it). The vanilla Diff calibrates without ``a`` (``a_dim=None``), as
+    the JAX process does. ``shape`` (C, H, W) overrides ``cfg.shape``."""
 
     def __init__(self, cfg, model: torch.nn.Module,
-                 turbo: Optional[str] = None):
+                 turbo: Optional[str] = None, shape=None):
         self.cfg = cfg
         self.model = model.eval()
-        c, h, w = cfg.shape
+        c, h, w = shape if shape is not None else cfg.shape
         self.data_shape = (h, w, c)
         self.device = _device_of(model)
         self.is_conditional = cfg.model != "vanilla"
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
         self.turbo = _resolve_turbo(cfg, turbo)
-        self.quant = {}
-        if self.turbo:
-            if not self.is_conditional:
-                _no_turbo(self.turbo, "the vanilla Diff")
-            q8.calibrate(model, self.data_shape, a_dim=cfg.a_dim,
-                         T=cfg.diffusion_steps, mode=self.turbo)
-            self.quant = q8.quant_state(model)
-            q8.clear_quant_state(model)
+        self.quant = _calibrated(
+            cfg, model, self.data_shape,
+            cfg.a_dim if self.is_conditional else None, self.turbo)
 
     def _eps_fn(self) -> Callable:
         if self.is_conditional:
@@ -326,20 +359,32 @@ class TwoPhaseDiffusionProcess:
     ``sampling`` runs ``model2`` for the steps n <= ``cfg.split_step``,
     ``model1`` after (``model2`` throughout with
     ``cfg.two_phase_reference_quirk``); ``reverse_sampling`` encodes through
-    ``model1`` (D13 quirk as in ``DiffusionProcess``). The int8 tier is not
-    ported for this process: a turbo mode raises."""
+    ``model1`` (D13 quirk as in ``DiffusionProcess``).
+
+    ``turbo='int8'`` calibrates both models here, ``model1`` with ``a`` and
+    ``model2`` without, as the JAX process does, and keeps both quant
+    states; each is installed on its model only while that model's phase
+    runs. ``shape`` (C, H, W) overrides ``cfg.shape``."""
 
     def __init__(self, cfg, model1: torch.nn.Module, model2: torch.nn.Module,
-                 turbo: Optional[str] = None):
-        _no_turbo(_resolve_turbo(cfg, turbo), "two-phase sampling")
+                 turbo: Optional[str] = None, shape=None):
         self.cfg = cfg
         self.model1 = model1.eval()
         self.model2 = model2.eval()
-        c, h, w = cfg.shape
+        c, h, w = shape if shape is not None else cfg.shape
         self.data_shape = (h, w, c)
         self.device = _device_of(model1)
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
+        self.turbo = _resolve_turbo(cfg, turbo)
+        self.quant1 = _calibrated(cfg, model1, self.data_shape, cfg.a_dim,
+                                  self.turbo)
+        self.quant2 = _calibrated(cfg, model2, self.data_shape, None,
+                                  self.turbo)
+
+    def _installed(self) -> _Installed:
+        return _Installed({self.model1: self.quant1,
+                           self.model2: self.quant2})
 
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
@@ -351,11 +396,14 @@ class TwoPhaseDiffusionProcess:
         if a is None:
             a = torch.randn((xT.shape[0], self.cfg.a_dim),
                             generator=generator, device=self.device)
-        return two_phase_sample_loop(
-            self.model1, lambda x, t: self.model2(x, t), self.sched, xT,
-            generator, a, self.cfg.split_step,
-            deterministic=self.cfg.deterministic,
-            reference_quirk=self.cfg.two_phase_reference_quirk, noises=noises)
+        with self._installed() as quant:
+            return two_phase_sample_loop(
+                quant.wrap(self.model1, self.model1),
+                quant.wrap(self.model2, lambda x, t: self.model2(x, t)),
+                self.sched, xT, generator, a, self.cfg.split_step,
+                deterministic=self.cfg.deterministic,
+                reference_quirk=self.cfg.two_phase_reference_quirk,
+                noises=noises)
 
     @torch.no_grad()
     def reverse_sampling(self, x0: torch.Tensor, a=None,
@@ -363,9 +411,10 @@ class TwoPhaseDiffusionProcess:
         """DDIM encoding through ``model1``, as
         ``DiffusionProcess.reverse_sampling`` does for a conditional
         model."""
-        return reverse_sample_loop(
-            _reverse_eps_fn(self.cfg, self.model1, True, a, generator),
-            self.sched, x0, a)
+        eps_fn = _reverse_eps_fn(self.cfg, self.model1, True, a, generator)
+        with self._installed() as quant:
+            return reverse_sample_loop(quant.wrap(self.model1, eps_fn),
+                                       self.sched, x0, a)
 
 
 # the JAX process's warning where the trajectory kernel is not taken

@@ -5,6 +5,7 @@
 
     model = build_model(cfg)                      # an InfoDiff, on the card
     pipe = InfoDiffusionPipeline(cfg, model)
+    pipe = InfoDiffusionPipeline.from_checkpoint(cfg)  # or a trained one
     imgs = pipe.generate(16, a=latents, steps=100)
     a = pipe.encode(imgs)                         # semantic latents
     xT = pipe.invert(imgs)                        # reverse DDIM, x0 -> xT
@@ -13,7 +14,8 @@
     mix = pipe.interpolate(imgs[:2], n=10, steps=100)
 
 Images are NHWC f32 on the model's device; outputs are clipped to [-1, 1].
-Loading a checkpoint (``from_checkpoint``) comes with the runner's slice.
+``from_checkpoint`` loads ``model-{epoch}`` from the runner's checkpoint
+directory (the port's own format, ``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -24,14 +26,9 @@ from typing import Optional, Sequence
 import torch
 
 from infodiffusion_tpu_torch.diffusion.samplers import DiffusionProcess
+from infodiffusion_tpu_torch.utils import cos
 
 ETAS = (-1.5, -1.2, -0.9, -0.6, -0.3, 0.0, 0.3, 0.6, 0.9, 1.2, 1.5)
-
-
-def cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Cosine similarity of two flattened tensors."""
-    a, b = a.reshape(-1), b.reshape(-1)
-    return torch.dot(a / a.norm(), b / b.norm())
 
 
 class InfoDiffusionPipeline:
@@ -45,6 +42,26 @@ class InfoDiffusionPipeline:
         self.process = DiffusionProcess(cfg, model)
         self.generator = torch.Generator(device=self.process.device)
         self.generator.manual_seed(seed)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, epoch: Optional[int] = None, device=None,
+                        seed: int = 0) -> "InfoDiffusionPipeline":
+        """The pipeline over the weights the runner saved for ``cfg`` at
+        ``epoch`` (default ``cfg.epochs``, as the eval modes load), the EMA
+        when it was saved; ``device`` as the runner resolves it (the card,
+        or the CPU under ``INFODIFF_FORCE_CPU=1``)."""
+        from infodiffusion_tpu_torch.models.wrappers import build_model
+        from infodiffusion_tpu_torch.runner import resolve_device
+        from infodiffusion_tpu_torch.train.checkpoint import (
+            checkpoint_root,
+            restore_params,
+        )
+
+        cfg = cfg.with_dataset_config()
+        model = build_model(cfg, device=resolve_device(device))
+        restore_params(checkpoint_root(cfg),
+                       cfg.epochs if epoch is None else epoch, model)
+        return cls(cfg, model.eval(), seed=seed)
 
     def _sample(self, xT, a, steps, generator=None, n=16) -> torch.Tensor:
         out = self.process.sampling(

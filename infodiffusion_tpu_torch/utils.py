@@ -1,4 +1,5 @@
-"""Prior draws (JAX counterpart: ``infodiffusion_tpu/utils.py``).
+"""Prior draws, the slerp helpers, seeding and the console meters
+(JAX counterpart: ``infodiffusion_tpu/utils.py``).
 
 ``--prior 10mix`` and ``--prior roll`` as the JAX package draws them, from
 an explicit ``torch.Generator`` (never the global RNG). The quirks are
@@ -10,8 +11,10 @@ mixture's 2-d pairs are interleaved ``[x0, y0, x1, y1, ...]``.
 from __future__ import annotations
 
 import math
+import random as _pyrandom
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -52,3 +55,72 @@ def swiss_roll(generator: Optional[torch.Generator], batch_size: int,
     t = 1.5 * math.pi * (1.0 + 2.0 * torch.rand(batch_size, **kw))
     n = torch.randn(batch_size, 2, **kw) * noise
     return (torch.stack([t * torch.cos(t), t * torch.sin(t)], dim=-1) + n) / 5.0
+
+
+def cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of two flattened tensors; feeds the slerp of
+    interpolate mode."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return torch.dot(a / a.norm(), b / b.norm())
+
+
+def slerp(x0: torch.Tensor, x1: torch.Tensor, e: float, theta) -> torch.Tensor:
+    """(sin((1-e)θ) x0 + sin(eθ) x1) / sin(θ)."""
+    return (torch.sin((1.0 - e) * theta) * x0
+            + torch.sin(e * theta) * x1) / torch.sin(theta)
+
+
+def seed_everything(r_seed: int) -> int:
+    """Seed Python's, numpy's and torch's global generators and return the
+    seed of the run's own ``torch.Generator`` draws (every draw of the port
+    comes from an explicit generator; the global ones are seeded for any
+    library code that reads them)."""
+    _pyrandom.seed(r_seed)
+    np.random.seed(r_seed)
+    torch.manual_seed(r_seed)
+    return r_seed
+
+
+class AverageMeter:
+    """Console meter: the last value and the running average."""
+
+    def __init__(self, name: str, fmt: str = ":f"):
+        self.name = name
+        self.fmt = fmt
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+    def __str__(self):
+        fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
+        return fmtstr.format(**self.__dict__)
+
+
+class ProgressMeter:
+    """Console progress line: ``prefix[i/n]`` and each meter."""
+
+    def __init__(self, num_batches: int, meters, prefix: str = ""):
+        self.batch_fmtstr = self._get_batch_fmtstr(num_batches)
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int):
+        entries = [self.prefix + self.batch_fmtstr.format(batch)]
+        entries += [str(m) for m in self.meters]
+        print("\r" + "\t".join(entries), end="")
+
+    @staticmethod
+    def _get_batch_fmtstr(num_batches: int):
+        num_digits = len(str(num_batches // 1))
+        fmt = "{:" + str(num_digits) + "d}"
+        return "[" + fmt + "/" + fmt.format(num_batches) + "]"

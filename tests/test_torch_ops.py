@@ -264,17 +264,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_import_without_jax():
-    """The port and every submodule import with jax, flax and the JAX
-    package blocked, as on a machine that has no JAX, and the port's Config
-    instantiates."""
+    """The port and every submodule (``__main__`` included, which must not
+    start the CLI on import) import with jax, flax, optax, orbax, the JAX
+    package, and PIL, matplotlib, sklearn and tensorboard blocked, as on
+    the card's machine, and the port's Config instantiates."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
-        "sys.modules['infodiffusion_tpu'] = None\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'orbax.checkpoint',\n"
+        "             'infodiffusion_tpu', 'PIL', 'matplotlib', 'sklearn',\n"
+        "             'tensorboard', 'torch.utils.tensorboard'):\n"
+        "    sys.modules[name] = None\n"
         "import infodiffusion_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "assert 'infodiffusion_tpu_torch.__main__' in names, names\n"
+        "assert 'infodiffusion_tpu_torch.runner' in names, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "from infodiffusion_tpu_torch.config import Config\n"
         "assert Config(dataset='celeba').with_dataset_config().shape == "
         "(3, 64, 64)\n"
@@ -287,27 +293,38 @@ def test_import_without_jax():
 
 
 def test_config_mirrors_jax_config():
-    """Every field of the port's Config is a JAX Config field with the same
-    default; the dataset table and the checks are the same."""
+    """The port's Config has exactly the JAX Config's fields, each with the
+    same default; the dataset table, the choices, the checks and the
+    experiment names are the same."""
     import dataclasses
 
     from infodiffusion_tpu import config as jcfg
     from infodiffusion_tpu_torch import config as pcfg
 
     jax_defaults = {f.name: f.default for f in dataclasses.fields(jcfg.Config)}
-    for f in dataclasses.fields(pcfg.Config):
-        assert f.default == jax_defaults[f.name], f.name
+    port_defaults = {f.name: f.default
+                     for f in dataclasses.fields(pcfg.Config)}
+    assert port_defaults == jax_defaults
     assert pcfg.DATASET_CONFIG == jcfg.DATASET_CONFIG
     assert pcfg.MODELS == jcfg.MODELS and pcfg.DATASETS == jcfg.DATASETS
+    assert pcfg.MODES == jcfg.MODES and pcfg.PRIORS == jcfg.PRIORS
     for dataset in pcfg.DATASETS:
         p = pcfg.Config(dataset=dataset, a_dim=7).with_dataset_config()
         j = jcfg.Config(dataset=dataset, a_dim=7).with_dataset_config()
         assert (p.shape, p.latent_shape, p.unets_channels) == (
             j.shape, j.latent_shape, j.unets_channels)
+    for kw in ({}, {"kld_weight": 0.5, "use_C": True, "mmd_weight": 0.0},
+               {"prior": "10mix", "is_bottleneck": True, "a_dim": 256},
+               {"kld_weight": 1, "C_max": 10.0, "prior": "roll"}):
+        assert pcfg.generate_exp_string(pcfg.Config(**kw)) == \
+            jcfg.generate_exp_string(jcfg.Config(**kw))
+    assert pcfg.Config().replace(a_dim=5).a_dim == 5
     with pytest.raises(ValueError, match="model"):
         pcfg.Config(model="gan")
     with pytest.raises(ValueError, match="dataset"):
         pcfg.Config(dataset="imagenet")
+    with pytest.raises(ValueError, match="mode"):
+        pcfg.Config(mode="serve")
 
 
 BF16_GRAD_TOL = 2e-2
