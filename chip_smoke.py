@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE, 512px, ch-32 (mnist, chairs) and command-line paths on one NVIDIA GPU.
+VAE, 512px, ch-32 (mnist, chairs), command-line and evaluation paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -164,8 +165,20 @@ on the card. Phases, each printing one line or a few, any failure raising:
    the metrics' losses, the [512, 256] f32 latents (the first batch against
    the pipeline's encode on the saved checkpoint), the PNG counts and
    headers, and prints the loader's H2D bytes a batch.
+20. the evaluation path, in phase 19's directory on its checkpoint: a
+   schema-exact fixture InceptionV3 checkpoint from a numpy seed (it
+   stands in for the real weights); the card's clean resize and features
+   against the CPU's on 16 images with TF32 turned on globally (the
+   extractor pins f32 itself); ``gen_fid_stats`` over 2,560 synthetic
+   celeba PNGs; ``eval_fid --is_latent`` at DDIM-10 into 2,560 PNGs;
+   ``calc_fid`` over them (FID and KID finite, FID > 0, the real folder
+   against its own stats under 1e-3 of it); the seconds of decode, resize,
+   forward (images/s), sqrtm and KID; ``attr_classification`` on 512
+   images (its results.json) and TAD over phase 19's latents; exact
+   launches per stage (the FID stages none).
 
-``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line).
+``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line);
+``--only 20`` runs 19 first.
 
 Every time is held to its bound: an event time, or a device time (K1,
 K1-bwd, K2, K3a, K3b, K3c, SDPA and F.group_norm, from a CUDA graph of
@@ -3166,31 +3179,48 @@ CLI_MODES = (
 )
 
 
-def cli_expected(model):
-    """Exact launches per mode of CLI_MODES, from the flagship's structure:
-    K1 once at every GroupNorm (the ResBlock norms and the attention
-    blocks' norm) of a UNet or Encoder forward and K1-bwd once at each in
-    the backward, K2 once at every attention block (C=128: 256 tokens at
-    level 2, 64 in the middle block), K3b on the dense contract (below the
-    512-token gate) once at each in the backward; K4 once a latent
-    trajectory. The latent prior's training runs no kernel."""
+def flagship_sites(model):
+    """(GroupNorm sites of the UNet, of the Encoder, attention blocks of the
+    UNet, of the Encoder): K1 runs once at every GroupNorm (the ResBlock
+    norms and the attention blocks' norm) of a forward, K2 once at every
+    attention block (C=128: 256 tokens at level 2, 64 in the middle
+    block)."""
     from infodiffusion_tpu_torch.nn.attention import _GN, AttnBlock
     from infodiffusion_tpu_torch.nn.blocks import _GNParams
 
     def count(module, kinds):
         return sum(isinstance(m, kinds) for m in module.modules())
 
-    gn_u, gn_e = (count(m, (_GNParams, _GN))
-                  for m in (model.backbone, model.encoder))
-    at_u, at_e = (count(m, AttnBlock) for m in (model.backbone, model.encoder))
-    steps = CLI_N // CLI_BATCH  # a training epoch
+    return (count(model.backbone, (_GNParams, _GN)),
+            count(model.encoder, (_GNParams, _GN)),
+            count(model.backbone, AttnBlock), count(model.encoder, AttnBlock))
 
-    def run(k1=0, k1_bwd=0, k2=0, dense=0, k4=0):
-        return {"adagn": k1, "adagn_bwd": k1_bwd, "attention": k2,
-                contract_key("dense"): dense, contract_key("flash"): 0,
-                "latent_traj": k4, "flash_attention": 0,
-                "latent_traj_int8": 0, "latent_mlp": 0, "qconv": 0,
-                "int8_conv": 0, "shortcut_fused": 0}
+
+def zero_launches():
+    """A count of 0 for every kernel and each K3b contract."""
+    total = dict.fromkeys(KERNELS, 0)
+    total.update({contract_key(c): 0 for c in ("flash", "dense")})
+    return total
+
+
+def launch_counts(k1=0, k1_bwd=0, k2=0, dense=0, k4=0):
+    """Every kernel's count (and K3b's per contract), the others 0."""
+    return {"adagn": k1, "adagn_bwd": k1_bwd, "attention": k2,
+            contract_key("dense"): dense, contract_key("flash"): 0,
+            "latent_traj": k4, "flash_attention": 0,
+            "latent_traj_int8": 0, "latent_mlp": 0, "qconv": 0,
+            "int8_conv": 0, "shortcut_fused": 0}
+
+
+def cli_expected(model):
+    """Exact launches per mode of CLI_MODES, from the flagship's structure
+    (``flagship_sites``): K1 and K2 at each site of a forward, K1-bwd once
+    at each GroupNorm in the backward, K3b on the dense contract (below the
+    512-token gate) once at each attention block in the backward; K4 once
+    a latent trajectory. The latent prior's training runs no kernel."""
+    gn_u, gn_e, at_u, at_e = flagship_sites(model)
+    steps = CLI_N // CLI_BATCH  # a training epoch
+    run = launch_counts
 
     train = run(k1=steps * (gn_u + gn_e), k1_bwd=steps * (gn_u + gn_e),
                 k2=steps * (at_u + at_e), dense=steps * (at_u + at_e))
@@ -3230,15 +3260,12 @@ def png_shape(path):
     return h, w, c
 
 
-def cli_path(device, smi):
+def cli_path(device, smi, work):
     """Phase 19: run.py's command line through the port's own entry point,
-    one mode after another in a temporary directory; checks the
+    one mode after another in the directory ``work``; checks the
     checkpoints (epoch 2 at step 8), the metrics, the latents, the PNGs,
     the CLI's latents against the pipeline's encode of the same images,
     and the exact launches per mode. Returns the launches, summed."""
-    import shutil
-    import tempfile
-
     from infodiffusion_tpu_torch import cli
     from infodiffusion_tpu_torch.data.datasets import get_dataset
     from infodiffusion_tpu_torch.data.loader import (
@@ -3250,10 +3277,8 @@ def cli_path(device, smi):
     probe = build_model(cfg, device="cpu")
     want = cli_expected(probe)
     del probe
-    total = dict.fromkeys(KERNELS, 0)
-    total.update({contract_key(c): 0 for c in ("flash", "dense")})
+    total = zero_launches()
     cwd = os.getcwd()
-    work = tempfile.mkdtemp(prefix="infodiff_cli_")
     try:
         os.chdir(work)
         with env_set({"INFODIFF_SYNTHETIC_N": str(CLI_N)}):
@@ -3322,8 +3347,211 @@ def cli_path(device, smi):
             del pipe, loader, x
     finally:
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
+    return total
+
+
+# phase 20: the evaluation path in phase 19's directory, on its checkpoint:
+# FID / KID (the port's InceptionV3 on a fixture checkpoint, which stands
+# in for the real weights), attr_classification and TAD
+EVAL_N = 2560  # images a folder: more than the 2,048 features (full rank)
+EVAL_STEPS = 10
+EVAL_CHECK_N = 16  # images of the card-against-CPU check
+TOL.update({"resize": 2e-6, "inception": 1e-4, "self_fid": 1e-3})
+
+
+def eval_expected(model):
+    """Exact launches per stage of phase 20 (``flagship_sites``): the FID
+    stages launch no hand kernel (the Inception convs are cuDNN's);
+    eval_fid runs K4 once a batch and K1 / K2 at each UNet site a DDIM
+    step; attr_classification encodes the dataset (K1 / K2 at each
+    Encoder site a batch)."""
+    gn_u, gn_e, at_u, at_e = flagship_sites(model)
+    batches = EVAL_N // CLI_BATCH
+    steps = batches * EVAL_STEPS
+    return {
+        "gen_fid_stats": launch_counts(),
+        "eval_fid": launch_counts(k1=steps * gn_u, k2=steps * at_u,
+                                  k4=batches),
+        "calc_fid": launch_counts(),
+        "attr_classification": launch_counts(k1=CLI_N // CLI_BATCH * gn_e,
+                                             k2=CLI_N // CLI_BATCH * at_e),
+    }
+
+
+def eval_card_vs_cpu(FID, INC, batch_u8, ckpt, device):
+    """The card's clean resize and Inception features against the CPU's on
+    the same uint8 images and weights, with TF32 turned on globally first:
+    the extractor must pin f32 itself (printed beside the error of the
+    same forward outside the pin)."""
+    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = torch.from_numpy(batch_u8)
+        r_abs, _ = rel_err(INC.clean_resize(x.to(device)),
+                           INC.clean_resize(x))
+        got = FID.get_extractor("inception", device)[0](batch_u8)
+        want = torch.from_numpy(
+            FID.get_extractor("inception", "cpu")[0](batch_u8))
+        f_abs, f_rel = rel_err(torch.from_numpy(got), want)
+        # the contrast: the same forward without the extractor's pin
+        with torch.no_grad():
+            unpinned = INC.forward(INC.load_params(ckpt, device),
+                                   INC.clean_resize(x.to(device)))
+        _, t_rel = rel_err(unpinned, want)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+    print(f"[eval] card against CPU, {len(batch_u8)} images 64px -> 299, "
+          f"TF32 on globally: resize max abs err {r_abs:.2e} (bar "
+          f"{TOL['resize']:.0e}); features max abs err {f_abs:.3e} = "
+          f"{f_rel:.2e} of max |feature| (bar {TOL['inception']:.0e}); "
+          f"the forward outside the extractor's pin (TF32 convs) "
+          f"{t_rel:.2e}")
+    if not r_abs <= TOL["resize"]:
+        raise AssertionError(f"clean_resize card vs CPU {r_abs:.3e}")
+    if not f_rel <= TOL["inception"]:
+        raise AssertionError(f"Inception features card vs CPU {f_rel:.3e}")
+
+
+def eval_stages(FID, INC, folder, ckpt, ref, device, smi):
+    """Seconds of each stage of scoring ``folder`` against its own stats
+    ``ref``: decode (the reader's threads), resize and the forward on the
+    card (synchronised), sqrtm (the self-FID) and KID. Returns the
+    self-FID."""
+    t0 = time.perf_counter()
+    batches = list(FID._iter_folder(folder, None))
+    t1 = time.perf_counter()
+    xs = [INC.clean_resize(torch.from_numpy(b).pin_memory().to(device))
+          for b in batches]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    params = INC.load_params(ckpt, device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    with torch.no_grad(), INC.full_f32():
+        feats = torch.cat([INC.forward(params, x) for x in xs]).cpu().numpy()
+    t4 = time.perf_counter()
+    mu, sigma = FID.feature_stats(feats)
+    self_fid = FID.frechet_distance(ref["mu"], ref["sigma"], mu, sigma)
+    t5 = time.perf_counter()
+    self_kid = FID.kid_score(ref["feats"], feats)
+    t6 = time.perf_counter()
+    n = len(feats)
+    print(f"[eval] {n} images of {folder}: decode {t1 - t0:.2f} s, resize "
+          f"{t2 - t1:.2f} s (with the H2D copies), forward {t4 - t3:.2f} s "
+          f"= {n / (t4 - t3):.1f} images/s (f32, B=256), sqrtm "
+          f"{t5 - t4:.2f} s, KID {t6 - t5:.2f} s (host clock, synchronised; "
+          f"{smi}); self-FID {self_fid:.3e}, self-KID {self_kid:.3e}; "
+          f"features against the stats file's: max abs diff "
+          f"{np.abs(feats - ref['feats']).max():.2e}")
+    return self_fid
+
+
+def eval_path(device, smi, work):
+    """Phase 20: the evaluation path in phase 19's directory ``work``, on
+    its flagship checkpoint: a fixture Inception checkpoint; card against
+    CPU; gen_fid_stats over 2,560 synthetic celeba images; eval_fid
+    --is_latent at DDIM-10 into 2,560 PNGs; calc_fid over them (FID and
+    KID finite, FID > 0; the real folder against its own stats ~ 0);
+    attr_classification on 512 images and TAD over phase 19's latents;
+    exact launches per stage. Returns the launches, summed."""
+    from infodiffusion_tpu_torch import calc_fid, cli, gen_fid_stats
+    from infodiffusion_tpu_torch.data.datasets import get_dataset
+    from infodiffusion_tpu_torch.imaging import write_png_batch
+    from infodiffusion_tpu_torch.metrics import TADMetric
+    from infodiffusion_tpu_torch.metrics import fid as FID
+    from infodiffusion_tpu_torch.metrics import inception as INC
+    from infodiffusion_tpu_torch.runner import image_root, latent_npz_path
+
+    cfg = cli.parse_args(CLI_COMMON + ["--mode", "eval"]).with_dataset_config()
+    probe = build_model(cfg, device="cpu")
+    want = eval_expected(probe)
+    del probe
+    total = zero_launches()
+    secs = {}
+
+    def stage(label, run):
+        out, dt, n = timed(run)
+        expect(f"eval {label}", n, want[label])
+        for k in total:
+            total[k] += n[k]
+        secs[label] = dt
+        return out
+
+    ckpt = os.path.join(work, "pt_inception-fixture.pth")
+    sd = INC.random_state_dict(0)
+    ok, problems = INC.verify_state_dict_schema(sd)
+    if not ok:
+        raise AssertionError(f"fixture Inception checkpoint: {problems}")
+    torch.save(sd, ckpt)
+    del sd
+    real = os.path.join(work, "celeba_real")
+    gen = os.path.join(work, image_root(cfg), "eval-fid-latent")
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        with env_set({"INFODIFF_INCEPTION_WEIGHTS": ckpt,
+                      "INFODIFF_FID_STATS_DIR": os.path.join(work, "stats"),
+                      "INFODIFF_SYNTHETIC_N": str(EVAL_N)}):
+            imgs = get_dataset(cfg).images
+            eval_card_vs_cpu(FID, INC, imgs[:EVAL_CHECK_N], ckpt, device)
+            t0 = time.perf_counter()
+            write_png_batch([os.path.join(real, f"{i:06d}.png")
+                             for i in range(EVAL_N)], imgs)
+            secs["write real PNGs"] = time.perf_counter() - t0
+            del imgs
+            stats = stage("gen_fid_stats",
+                          lambda: gen_fid_stats.main(["celeba", real]))
+            stage("eval_fid", lambda: cli.main(CLI_COMMON + [
+                "--mode", "eval_fid", "-e", "2", "--is_latent",
+                "--sampling_steps", str(EVAL_STEPS),
+                "--sampling_number", str(EVAL_N)]))
+            pngs = sorted(os.listdir(gen))
+            if len(pngs) != EVAL_N or png_shape(os.path.join(
+                    gen, pngs[-1])) != (SIZE, SIZE, 3):
+                raise AssertionError(f"eval_fid PNGs: {len(pngs)}")
+            fid, kid = stage("calc_fid",
+                             lambda: calc_fid.main(["celeba", gen]))
+            if not (math.isfinite(fid) and math.isfinite(kid) and fid > 0):
+                raise AssertionError(f"calc_fid: fid {fid}, kid {kid}")
+            ref = np.load(stats, allow_pickle=True)
+            if str(ref["extractor"]) != "inception-jax" \
+                    or ref["feats"].shape != (EVAL_N, INC.FEATURE_DIM):
+                raise AssertionError(f"stats file {stats}: "
+                                     f"{ref['extractor']} {ref['feats'].shape}")
+            self_fid = eval_stages(FID, INC, real, ckpt, ref, device, smi)
+            if not abs(self_fid) < TOL["self_fid"] * fid:
+                raise AssertionError(f"self-FID {self_fid:.3e} against the "
+                                     f"generated folder's {fid:.3e}")
+        with env_set({"INFODIFF_SYNTHETIC_N": str(CLI_N)}):
+            mean = stage("attr_classification", lambda: cli.main(
+                CLI_COMMON + ["--mode", "attr_classification", "-e", "2"]))
+        with open(os.path.join(image_root(cfg), "attr_classification",
+                               "results.json")) as f:
+            res = json.load(f)
+        if not (math.isfinite(mean) and 0.0 <= mean <= 1.0
+                and res["mean_auroc"] == mean):
+            raise AssertionError(f"attr_classification: {mean} {res}")
+        npz = np.load(latent_npz_path(cfg), allow_pickle=True)
+        t0 = time.perf_counter()
+        tad, _, n_attr = TADMetric(npz["all_attr"].shape[1]).evaluate(
+            npz["all_a"], npz["all_attr"])
+        secs["TAD"] = time.perf_counter() - t0
+        if not math.isfinite(tad):
+            raise AssertionError(f"TAD {tad}")
+    finally:
+        os.chdir(cwd)
+        torch.cuda.empty_cache()
+    print(f"[eval] stages (s, host clock, synchronised; {smi}): "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; FID {fid:.4f}, "
+          f"KID {kid:.5f} (fixture Inception weights: not comparable to "
+          f"published scores); attr_classification mean AUROC {mean:.4f} "
+          f"over {len(res['per_attr_auroc'])} attributes; TAD {tad:.4f} "
+          f"({n_attr} attributes) over phase 19's latents; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
     return total
 
 
@@ -3421,10 +3649,12 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-19) to run after 1 "
-                             "and 2; default all, which also prints the "
-                             "kernels line")
+                        help="comma-separated phases (3-20) to run after 1 "
+                             "and 2 (20 runs 19 first); default all, which "
+                             "also prints the kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
+    if 20 in only:  # phase 20 scores phase 19's checkpoint
+        only.add(19)
     clock = {"phase": None, "t0": time.perf_counter()}
 
     def run(phase):
@@ -3539,7 +3769,16 @@ def main() -> None:
         torch.cuda.empty_cache()
         c64_card_vs_cpu(device)
     if run(19):
-        by_path["cli"] = cli_path(device, smi)
+        import shutil
+        import tempfile
+
+        work = tempfile.mkdtemp(prefix="infodiff_cli_")
+        try:
+            by_path["cli"] = cli_path(device, smi, work)
+            if run(20):
+                by_path["metrics"] = eval_path(device, smi, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     run(None)  # the last phase's time
     if not only:
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))

@@ -22,9 +22,14 @@ and class names so each counterpart is found at once:
 - ``data``: the datasets (the synthetic sets and the on-disk readers) and
   the loader that ships uint8 to the card.
 - ``cli`` and ``runner`` (``python -m infodiffusion_tpu_torch <run.py
-  flags>``): every mode of the JAX CLI but ``attr_classification``, with
-  ``imaging`` (PNG grids, written with the standard library) and
-  ``logging_utils`` (the metrics JSONL).
+  flags>``): every mode of the JAX CLI, with ``imaging`` (PNG grids,
+  written and read with the standard library) and ``logging_utils`` (the
+  metrics JSONL).
+- ``metrics``: FID and KID (``fid``, over the InceptionV3 of
+  ``inception`` on the run's device) and the disentanglement metrics (DCI,
+  TAD, the probe, ``auroc``); the entry points ``gen_fid_stats``,
+  ``calc_fid`` and ``eval_disentanglement`` (``python -m
+  infodiffusion_tpu_torch.<name>``).
 - ``utils``: the prior draws, the slerp helpers, seeding and the console
   meters.
 - ``pipelines``: ``InfoDiffusionPipeline`` (generate, encode, invert,

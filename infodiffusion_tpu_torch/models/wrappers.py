@@ -33,6 +33,9 @@ from infodiffusion_tpu_torch.models.unet import (
     Encoder,
     UNet,
 )
+from infodiffusion_tpu_torch.nn.blocks import dropout
+from infodiffusion_tpu_torch.nn.initializers import lecun_normal_
+from infodiffusion_tpu_torch.nn.layers import Dense
 from infodiffusion_tpu_torch.ops.mmd import compute_mmd
 from infodiffusion_tpu_torch.utils import gaussian_mixture, swiss_roll
 
@@ -359,6 +362,32 @@ class VAE(nn.Module):
                 loss = loss + self.kld_weight * kld
             aux["kld"] = kld
         return loss, aux
+
+
+class FeatureClassifier(nn.Module):
+    """The attribute probe of ``--mode attr_classification``: Dense 512,
+    ReLU, Dropout 0.5, Dense 128, ReLU, Dropout 0.5, Dense ``output_dim``,
+    sigmoid. The layers carry the Flax names (``Dense_0`` .. ``Dense_2``)
+    and Flax's ``nn.Dense`` initializers (lecun normal, zero bias), drawn
+    from ``generator``; the dropout masks come from the generator passed to
+    ``forward``."""
+
+    def __init__(self, in_features: int, output_dim: int = 40,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        widths = (in_features, 512, 128, output_dim)
+        for i in range(3):
+            layer = Dense(widths[i], widths[i + 1])
+            with torch.no_grad():
+                lecun_normal_(layer.weight, generator)
+            setattr(self, f"Dense_{i}", layer)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        x = dropout(torch.relu(self.Dense_0(x)), 0.5, deterministic, generator)
+        x = dropout(torch.relu(self.Dense_1(x)), 0.5, deterministic, generator)
+        return torch.sigmoid(self.Dense_2(x))
 
 
 def _parse_ints(v) -> Optional[Tuple[int, ...]]:

@@ -27,9 +27,10 @@ def kaiming_normal_relu_(w: torch.Tensor) -> torch.Tensor:
     return nn.init.kaiming_normal_(w, a=0.0, nonlinearity="relu")
 
 
-def lecun_normal_(w: torch.Tensor) -> torch.Tensor:
+def lecun_normal_(w: torch.Tensor, generator=None) -> torch.Tensor:
     """Flax ``lecun_normal``: a normal truncated at two stds, scaled to
-    variance 1 / fan_in. The Decoder's ``fc_a`` and the latent MLP's last
-    layer."""
+    variance 1 / fan_in. The Decoder's ``fc_a``, the latent MLP's last
+    layer and every ``FeatureClassifier`` layer."""
     std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
-    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)

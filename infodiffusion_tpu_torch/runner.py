@@ -12,7 +12,8 @@ the reference's shell workflows translate one to one through
   fetched every ``INFODIFF_LOG_EVERY`` steps only and
   ``INFODIFF_PROFILE=<dir>`` (steps 10..20, a Chrome trace);
 - ``eval``, ``eval_fid``, ``latent_quality``, ``plot_latent``,
-  ``disentangle``, ``save_latent``, ``interpolate``: :func:`evaluate`;
+  ``disentangle``, ``save_latent``, ``interpolate``,
+  ``attr_classification``: :func:`evaluate`;
 - ``save_original_img``: :func:`save_original_img`.
 
 Everything runs on one device: the card, or the CPU when
@@ -25,7 +26,8 @@ resumes at the batch after the last one it trained on (the JAX runner
 re-runs the epoch), so a resumed run equals an uninterrupted one; the
 train loop does not peek a batch before training, so its epoch k takes the
 loader's k-th draw; ``plot_latent`` always uses the dependency-free
-scatter; ``attr_classification`` is not ported.
+scatter; ``attr_classification``'s probe starts from the port's own draws
+(JAX's cannot be reproduced) and scores with the port's ``auroc``.
 """
 
 from __future__ import annotations
@@ -487,9 +489,7 @@ def _run_eval_mode(cfg, model, process, gen, device):
     if mode == "interpolate":
         return _mode_interpolate(cfg, model, process, gen, device)
     if mode == "attr_classification":
-        raise NotImplementedError(
-            "attr_classification needs FeatureClassifier and an AUROC, "
-            "which the port does not have yet (ROADMAP.md, Queue 1)")
+        return _mode_attr_classification(cfg, model, device)
     raise ValueError(mode)
 
 
@@ -707,6 +707,65 @@ def _mode_interpolate(cfg, model, process, gen, device):
     else:
         sample = _decode(model, intp_a)
     return save_images(cfg, sample)
+
+
+def _bce(prob: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    eps = 1e-7
+    return -(y * torch.log(prob + eps)
+             + (1 - y) * torch.log(1 - prob + eps)).mean()
+
+
+def _mode_attr_classification(cfg, model, device):
+    """Train the FeatureClassifier probe on the encoder's latents of the
+    dataset (the first 80%, attributes binarised as y > 0) and report the
+    per-attribute AUROC on the rest: 20 epochs of Adam (lr 1e-3) at
+    ``min(256, n_train)``, each epoch's order from ``RandomState(epoch)``.
+    The probe's initial weights and its dropout masks come from generators
+    seeded with ``--r_seed``."""
+    import json
+
+    from infodiffusion_tpu_torch.metrics import auroc
+    from infodiffusion_tpu_torch.models.wrappers import FeatureClassifier
+
+    all_a, all_attr = _encode_dataset(cfg, model, device)
+    y = np.asarray(all_attr)
+    if y.ndim == 1:
+        y = y[:, None]
+    y = (y > 0).astype(np.float32)
+    n_tr = int(len(all_a) * 0.8)
+    a = torch.from_numpy(all_a).to(device)
+    y_dev = torch.from_numpy(y).to(device)
+    te_y = y[n_tr:]
+
+    clf = FeatureClassifier(
+        all_a.shape[1], y.shape[1],
+        generator=torch.Generator().manual_seed(cfg.r_seed)).to(device)
+    opt = torch.optim.Adam(clf.parameters(), lr=1e-3)
+    drop = torch.Generator(device=device).manual_seed(cfg.r_seed)
+    bs = min(256, n_tr)
+    for epoch in range(20):
+        perm = torch.from_numpy(
+            np.random.RandomState(epoch).permutation(n_tr)).to(device)
+        for i in range(0, n_tr - bs + 1, bs):
+            sl = perm[i:i + bs]
+            loss = _bce(clf(a[sl], deterministic=False, generator=drop),
+                        y_dev[sl])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+    with torch.no_grad():
+        probs = clf(a[n_tr:]).cpu().numpy()
+    aurocs = [auroc(te_y[:, j], probs[:, j]) for j in range(y.shape[1])
+              if te_y[:, j].min() != te_y[:, j].max()]
+    mean_auroc = float(np.mean(aurocs)) if aurocs else float("nan")
+    root = os.path.join(image_root(cfg), "attr_classification")
+    os.makedirs(root, exist_ok=True)
+    out_path = os.path.join(root, "results.json")
+    with open(out_path, "w") as f:
+        json.dump({"mean_auroc": mean_auroc, "per_attr_auroc": aurocs}, f)
+    print(f"attr_classification mean AUROC: {mean_auroc:.4f} "
+          f"({len(aurocs)} attrs) -> {out_path}")
+    return mean_auroc
 
 
 def save_original_img(cfg: Config, device=None):

@@ -2,9 +2,10 @@
 its CLI on the CPU, each artifact where the JAX runner puts it: a profiled
 training run with its metrics cadence, save_latent, train_latent_ddim,
 eval_fid (two-phase over a vanilla model, and the latent prior), eval,
-latent_quality under --turbo int8, plot_latent, save_original_img, and
-attr_classification refused."""
+latent_quality under --turbo int8, plot_latent, save_original_img and
+attr_classification."""
 
+import json
 import os
 
 import numpy as np
@@ -54,5 +55,8 @@ def test_other_modes_run(run, tmp_path, monkeypatch):
                       ).shape == (512, 512, 3)
     run(argv("diff", "save_original_img"))
     assert len(os.listdir(tmp_path / "mnist_imgs")) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(argv("diff", "attr_classification"))
+    run(argv("diff", "attr_classification"))
+    with open(img / "attr_classification/results.json") as f:
+        res = json.load(f)
+    assert sorted(res) == ["mean_auroc", "per_attr_auroc"]
+    assert len(res["per_attr_auroc"]) == 1  # mnist: the class, as y > 0
