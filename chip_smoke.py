@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE, 512px, ch-32 (mnist, chairs), command-line and evaluation paths on one
-NVIDIA GPU.
+VAE, 512px, ch-32 (mnist, chairs), command-line, evaluation and
+reference-checkpoint / image-folder paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -176,6 +176,29 @@ on the card. Phases, each printing one line or a few, any failure raising:
    forward (images/s), sqrtm and KID; ``attr_classification`` on 512
    images (its results.json) and TAD over phase 19's latents; exact
    launches per stage (the FID stages none).
+
+21. a reference user's path (a trained ``.pth`` and a CelebA folder), at
+   the flagship's full width, bf16: the native image library built on the
+   card (which branch: libjpeg, else nvJPEG; PNG through zlib) and its
+   build seconds; the committed fixtures (``tests/fixtures/celeba_jpeg``,
+   178x218 JPEGs) decoded in the three modes against PIL's decode
+   (``expected_u8.npz``: mean < 0.5, max <= 2 a pixel); the CMYK and the
+   truncated fixture raising an IOError that names the file and PIL, with
+   PIL blocked; ``--mode train`` (4 steps at B=128) through the CLI over a
+   CelebA-layout folder of 512 JPEGs (the fixtures repeated), the native
+   batcher serving every image (images/s of its calls); a reference
+   ``.pth`` of a numpy-seeded flagship InfoDiff (with each AuxResBlock's
+   dead ``crossattn.*`` keys and the sinusoid table) and of its LatentUNet
+   prior; ``from_torch_checkpoint`` on the card, every parameter bitwise
+   the source model's; the prior's trajectory then DDIM-100 at B=128,
+   bitwise the source models' samples from the same generator;
+   ``tools.convert_checkpoint`` .pth -> ``model-50`` for both models, then
+   ``examples.generate`` on it (its pixels equal the pipeline's) and
+   ``examples.traverse`` over the folder (one dimension); ``eval_fid
+   --is_latent``, its PNGs through the native writer; ``CrossAttnBlock`` at
+   B=128, N=256, C=128 against its plain path (f32 and bf16); exact
+   launches per stage (training, generation and CrossAttnBlock make the
+   kernels line's ``reference`` path).
 
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line);
 ``--only 20`` runs 19 first.
@@ -3555,6 +3578,353 @@ def eval_path(device, smi, work):
     return total
 
 
+# phase 21: a reference user's path: a CelebA folder of JPEGs through the
+# native batcher, a reference .pth through from_torch_checkpoint, the
+# converter and the examples, and CrossAttnBlock
+REF_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "celeba_jpeg")
+REF_STEPS = 100  # DDIM steps of the generation from the .pth
+REF_EPOCH = 50  # the reference's model-50.pth
+REF_EXAMPLE_N = 16  # samples of examples.generate, at CLI_STEPS
+CROSS_HW, CROSS_C = 16, 128  # CrossAttnBlock at B=128: N=256, C=128
+# the fixtures' decode against PIL's (the JAX package's bars)
+TOL.update({"decode_mean": 0.5, "decode_max": 2.0})
+
+
+class no_pil:
+    """Block PIL's import for a block, as on a machine without it."""
+
+    NAMES = ("PIL", "PIL.Image")
+
+    def __enter__(self):
+        import sys
+
+        self.saved = {k: sys.modules.get(k) for k in self.NAMES}
+        for k in self.NAMES:
+            sys.modules[k] = None
+
+    def __exit__(self, *exc):
+        import sys
+
+        for k, v in self.saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def reference_expected(model):
+    """Exact launches of phase 21's counted stages (``flagship_sites``):
+    the CLI's training epoch over the folder, the prior's trajectory and
+    DDIM-100 from the .pth, and one CrossAttnBlock forward (K1 at its one
+    GroupNorm, applied to x and to a; K2 once)."""
+    gn_u, gn_e, at_u, at_e = flagship_sites(model)
+    steps = CLI_N // CLI_BATCH
+    return {
+        "train": launch_counts(k1=steps * (gn_u + gn_e),
+                               k1_bwd=steps * (gn_u + gn_e),
+                               k2=steps * (at_u + at_e),
+                               dense=steps * (at_u + at_e)),
+        "generate": launch_counts(k1=REF_STEPS * gn_u, k2=REF_STEPS * at_u,
+                                  k4=1),
+        "cross_attn": launch_counts(k1=2, k2=1),
+        # outside the path's count, exact all the same
+        "examples.generate": launch_counts(k1=CLI_STEPS * gn_u,
+                                           k2=CLI_STEPS * at_u),
+        "examples.traverse": launch_counts(
+            k1=gn_e + (T - 2 + CLI_STEPS) * gn_u,
+            k2=at_e + (T - 2 + CLI_STEPS) * at_u),
+        "eval_fid": launch_counts(k1=CLI_STEPS * gn_u, k2=CLI_STEPS * at_u,
+                                  k4=1),
+    }
+
+
+def reference_state_dict(img):
+    """The reference's state dict of ``img``: the port's export plus the
+    keys the reference saves and the port does not build (each
+    AuxResBlock's CrossAttnBlock, the sinusoid table)."""
+    from infodiffusion_tpu_torch.interop import export_torch_state_dict
+    from infodiffusion_tpu_torch.nn.attention import CrossAttnBlock
+
+    sd = export_torch_state_dict(img)
+    for key in list(sd):
+        m = re.fullmatch(r"(backbone\.\w+blocks\.\d+)\.block2\.3\.weight", key)
+        if m:
+            for k, v in CrossAttnBlock(sd[key].shape[0]).state_dict().items():
+                sd[f"{m.group(1)}.crossattn.{k}"] = (
+                    v[:, :, None, None] if v.ndim == 2 else v)
+    sd["backbone.time_embedding.timembedding.0.weight"] = \
+        img.backbone.time_embedding.table.cpu()
+    return sd
+
+
+def cross_attn_plain(block, x, a):
+    """CrossAttnBlock's forward on the kernels' plain versions (K1's and
+    K2's), on the same device and projections."""
+    B, C, H, W = x.shape
+    gn = block.group_norm
+
+    def norm(t):
+        return adagn_reference(t.permute(0, 2, 3, 1).contiguous(),
+                               gn.num_groups, gn.weight, gn.bias)
+
+    h, h_a = norm(x), norm(a)
+    q = block.proj_q(h_a).reshape(B, H * W, C)
+    k = block.proj_k(h).reshape(B, H * W, C)
+    v = block.proj_v(h).reshape(B, H * W, C)
+    o = attention_reference(q, k, v).reshape(B, H, W, C)
+    return x + block.proj(o).permute(0, 3, 1, 2)
+
+
+def check_cross_attn(device, stage):
+    """CrossAttnBlock at B=128, N=256, C=128 against its plain path in f32
+    and bf16; then one bf16 forward counted through ``stage``."""
+    from infodiffusion_tpu_torch.nn.attention import CrossAttnBlock
+
+    rng = np.random.RandomState(21)
+    shape = (BATCH, CROSS_HW, CROSS_HW, CROSS_C)
+    x, a = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            .to(device).permute(0, 3, 1, 2) for _ in range(2))
+    errs = []
+    for tag, dtype in DTYPES.items():
+        block = init_weights_(CrossAttnBlock(CROSS_C, dtype), 22,
+                              bias_std=0.1).to(device)
+        xd, ad = x.to(dtype), a.to(dtype)
+        with torch.no_grad():
+            abs_e, rel_e = rel_err(block(xd, ad), cross_attn_plain(block, xd,
+                                                                   ad))
+        errs.append(f"{tag} rel err {rel_e:.2e} (abs {abs_e:.2e}, bar "
+                    f"{TOL[tag]:.0e})")
+        if not rel_e <= TOL[tag]:
+            raise AssertionError(f"CrossAttnBlock {tag}: {rel_e:.3e}")
+    with torch.no_grad():
+        out = stage("cross_attn", lambda: block(xd, ad))
+    if tuple(out.shape) != (BATCH, CROSS_C, CROSS_HW, CROSS_HW) \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"CrossAttnBlock out {tuple(out.shape)}")
+    print(f"[reference] CrossAttnBlock B={BATCH} N={CROSS_HW ** 2} "
+          f"C={CROSS_C} against its plain path: {'; '.join(errs)}")
+
+
+def reference_path(device, smi, work):
+    """Phase 21: the native library (built, its branch), the fixtures'
+    decode against PIL's, the CMYK fixture without PIL, the CLI's training
+    over a CelebA-layout folder of 512 JPEGs (the native batcher serving
+    every image), a reference .pth of the flagship and its prior (with the
+    dead keys) loaded by from_torch_checkpoint (parameters and DDIM-100
+    bitwise the source model's), the converter and both examples on it,
+    eval_fid's PNGs through the native writer, and CrossAttnBlock. Returns
+    the launches of the counted stages (training, generation,
+    CrossAttnBlock), summed."""
+    import importlib.util
+    import shutil
+
+    from infodiffusion_tpu_torch import cli, interop, runner
+    from infodiffusion_tpu_torch.data import native as NAT
+    from infodiffusion_tpu_torch.data.datasets import ImageFolderDataset
+    from infodiffusion_tpu_torch.examples import generate, traverse
+    from infodiffusion_tpu_torch.imaging import decode_png, save_image
+    from infodiffusion_tpu_torch.tools import convert_checkpoint
+    from infodiffusion_tpu_torch.train.checkpoint import checkpoint_root
+
+    t0 = time.perf_counter()
+    if not NAT.native_available():
+        raise AssertionError(f"the native library did not build:\n"
+                             f"{NAT.build_error()}")
+    branch = {"libjpeg": "A (libjpeg)", "nvjpeg": "B (nvJPEG)"}[NAT.backend()]
+    print(f"[reference] native library: branch {branch}, zlib PNG; build "
+          f"{NAT.build_seconds():.2f} s (this process; found in "
+          f"{time.perf_counter() - t0:.2f} s)")
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(REF_FIXTURES, "make_fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    want = fixtures.load_expected()
+    good = fixtures.good_files()
+    decoded = []
+    for mode, flags in fixtures.MODES.items():
+        got = NAT.NativeImageBatcher(good, 64, *flags).decode(
+            np.arange(len(good)))
+        d = np.abs(got.astype(np.float64) - want[mode])
+        decoded.append(f"{mode} mean {d.mean():.4f} max {d.max():.0f}")
+        if not (d.mean() < TOL["decode_mean"]
+                and d.max() <= TOL["decode_max"]):
+            raise AssertionError(f"fixture decode {mode}: mean {d.mean()}, "
+                                 f"max {d.max()}")
+    bad = [os.path.join(REF_FIXTURES, f) for f in ("cmyk.jpg",
+                                                   "truncated.jpg")]
+    with no_pil():
+        for path in bad:
+            try:
+                ImageFolderDataset(files=[path], size=64, center_crop=True) \
+                    .get_batch_u8(np.arange(1))
+            except IOError as exc:
+                if os.path.basename(path) not in str(exc) \
+                        or "PIL" not in str(exc):
+                    raise AssertionError(f"{path}: {exc}") from exc
+            else:
+                raise AssertionError(f"{path} decoded without PIL")
+    print(f"[reference] fixtures 178x218 -> 64 against PIL's decode (bars "
+          f"mean < {TOL['decode_mean']}, max <= {TOL['decode_max']:.0f}): "
+          f"{'; '.join(decoded)}; cmyk.jpg and truncated.jpg raise IOError "
+          f"naming the file and PIL with PIL blocked")
+
+    folder = os.path.join(work, "celeba", "img_align_celeba")
+    os.makedirs(folder)
+    for i in range(CLI_N):
+        shutil.copyfile(good[i % len(good)],
+                        os.path.join(folder, f"{i + 1:06d}.jpg"))
+    common = ["--model", "diff", "--prior", "regular", "--dataset", "celeba",
+              "--a_dim", str(A_DIM), "--diffusion_steps", str(T),
+              "--data_dir", work, "--bf16", "--batch_size", str(CLI_BATCH),
+              "--r_seed", "7"]
+    cfg = cli.parse_args(common + ["--mode", "eval", "-e", str(REF_EPOCH),
+                                   "--deterministic"]).with_dataset_config()
+    probe = build_model(cfg, device="cpu")
+    want_n = reference_expected(probe)
+    del probe
+    total = zero_launches()
+    secs = {}
+
+    def stage(label, fn, counted=True):
+        out, dt, n = timed(fn)
+        expect(f"reference {label}", n, want_n[label])
+        if counted:
+            for k in total:
+                total[k] += n[k]
+        secs[label] = dt
+        return out
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        served = dict(NAT.counts)
+        stage("train", lambda: cli.main(common + [
+            "--mode", "train", "-e", "1", "--save_epochs", "1"]))
+        n_img = NAT.counts["decoded"] - served.get("decoded", 0)
+        n_bad = NAT.counts["failed"] - served.get("failed", 0)
+        dec_s = NAT.counts["decode_s"] - served.get("decode_s", 0.0)
+        n_pil = NAT.counts["pil"] - served.get("pil", 0)
+        if (n_img, n_bad, n_pil) != (CLI_N, 0, 0):
+            raise AssertionError(f"the native batcher served {n_img} images "
+                                 f"({n_bad} failed, {n_pil} through PIL) "
+                                 f"of {CLI_N}")
+        print(f"[reference] train -e 1 over {CLI_N} JPEGs: {secs['train']:.2f}"
+              f" s wall; the native batcher decoded all {n_img} ({n_bad} "
+              f"failed) in {dec_s:.3f} s of its calls = "
+              f"{n_img / dec_s:.1f} images/s (178x218 -> 64, center crop; "
+              f"host clock; {smi})")
+
+        _, img, lat = flagship(torch.bfloat16, device, seed=40)
+        ref = os.path.join(work, "reference")
+        os.makedirs(ref)
+        pth = os.path.join(ref, f"model-{REF_EPOCH}.pth")
+        lat_pth = os.path.join(ref, f"latent-{REF_EPOCH}.pth")
+        sd = reference_state_dict(img)
+        dead = len(sd) - len(img.state_dict())
+        torch.save(sd, pth)
+        torch.save(interop.export_torch_state_dict(lat), lat_pth)
+        del sd
+        pipe = InfoDiffusionPipeline.from_torch_checkpoint(cfg, pth,
+                                                           device=device)
+        lat2 = interop.load_torch_checkpoint(
+            build_model(cfg, latent=True, device=device), lat_pth).eval()
+        for src, dst in ((img, pipe.model), (lat, lat2)):
+            have = dst.state_dict()
+            diff = [k for k, v in src.state_dict().items()
+                    if not torch.equal(v, have[k])]
+            if diff:
+                raise AssertionError(f"from_torch_checkpoint: {diff[:4]}")
+        gen = torch.Generator(device=device)
+
+        def sample(lat_model, pipeline):
+            a = LatentDiffusionProcess(cfg, lat_model).sampling(
+                gen.manual_seed(21), sampling_number=BATCH)
+            return a, pipeline.generate(BATCH, a=a, steps=REF_STEPS,
+                                        generator=gen.manual_seed(22))
+
+        latents, images = stage("generate", lambda: sample(lat2, pipe))
+        src_latents, src_images = sample(lat, InfoDiffusionPipeline(cfg, img))
+        if tuple(images.shape) != (BATCH, SIZE, SIZE, 3) \
+                or not torch.isfinite(images).all():
+            raise AssertionError(f"generate {tuple(images.shape)}")
+        if not (torch.equal(latents, src_latents)
+                and torch.equal(images, src_images)):
+            raise AssertionError("DDIM-100 from the .pth differs from the "
+                                 "source model's")
+        print(f"[reference] from_torch_checkpoint: {len(img.state_dict())} "
+              f"+ {len(lat.state_dict())} parameters bitwise the source "
+              f"models' ({dead} dead reference keys skipped); latents "
+              f"(T={T}) then DDIM-{REF_STEPS} at B={BATCH}: "
+              f"{secs['generate']:.2f} s = {BATCH / secs['generate']:.2f} "
+              f"samples/s (host clock; {smi}), bitwise the source models' "
+              f"samples from the same generator")
+        del src_latents, src_images
+
+        flags = ["--model", "diff", "--prior", "regular", "--dataset",
+                 "celeba", "--a_dim", str(A_DIM), "--diffusion_steps", str(T)]
+        t1 = time.perf_counter()
+        for extra, src, latent in (([], pth, False),
+                                   (["--latent"], lat_pth, True)):
+            convert_checkpoint.main(flags + extra + [
+                "--src", src, "--dst", os.path.join(
+                    checkpoint_root(cfg, latent), f"model-{REF_EPOCH}")])
+        secs["convert"] = time.perf_counter() - t1
+        eval_argv = common + ["--mode", "eval", "-e", str(REF_EPOCH),
+                              "--deterministic", "--sampling_steps",
+                              str(CLI_STEPS)]
+        stage("examples.generate", lambda: generate.main(
+            eval_argv + ["--sampling_number", str(REF_EXAMPLE_N)]),
+            counted=False)
+        want_img = InfoDiffusionPipeline(cfg, pipe.model).generate(
+            REF_EXAMPLE_N, steps=CLI_STEPS).cpu().numpy()
+        save_image(want_img, "pipeline.png", normalize=True,
+                   value_range=(-1.0, 1.0))
+        with open("generated.png", "rb") as f, \
+                open("pipeline.png", "rb") as g:
+            if not np.array_equal(decode_png(f.read()), decode_png(g.read())):
+                raise AssertionError("examples.generate's pixels differ from "
+                                     "the pipeline's")
+        del pipe, lat2
+        rows = stage("examples.traverse", lambda: traverse.main(
+            eval_argv + ["--img_id", "0"], n_dims=1), counted=False)
+        with open("traverse-dim0.png", "rb") as f:
+            if decode_png(f.read()).shape != (SIZE + 4, 11 * (SIZE + 2) + 2,
+                                              3) \
+                    or not np.isfinite(rows[0]).all():
+                raise AssertionError("examples.traverse's row")
+
+        written = NAT.counts["written"]
+        writers = dict(runner.FID_WRITERS)
+        stage("eval_fid", lambda: cli.main(common + [
+            "--mode", "eval_fid", "-e", str(REF_EPOCH), "--is_latent",
+            "--deterministic", "--sampling_steps", str(CLI_STEPS),
+            "--sampling_number", str(CLI_BATCH)]), counted=False)
+        fid_dir = os.path.join(runner.image_root(cfg), "eval-fid-latent")
+        by = {k: runner.FID_WRITERS[k] - writers.get(k, 0)
+              for k in ("native", "imaging")}
+        if by != {"native": 1, "imaging": 0} \
+                or NAT.counts["written"] - written != CLI_BATCH \
+                or len(os.listdir(fid_dir)) != CLI_BATCH:
+            raise AssertionError(f"eval_fid's PNGs: writers {by}, native "
+                                 f"{NAT.counts['written'] - written}")
+        print(f"[reference] converter .pth -> model-{REF_EPOCH} (both models) "
+              f"{secs['convert']:.2f} s; examples.generate "
+              f"({REF_EXAMPLE_N} at DDIM-{CLI_STEPS}) pixels equal the "
+              f"pipeline's; examples.traverse over the folder (1 dim: "
+              f"{T - 2} reverse steps at B=1, DDIM-{CLI_STEPS} at B=11) "
+              f"{secs['examples.traverse']:.2f} s; eval_fid --is_latent "
+              f"wrote its {CLI_BATCH} PNGs through the native writer")
+        check_cross_attn(device, stage)
+    finally:
+        os.chdir(cwd)
+        torch.cuda.empty_cache()
+    print(f"[reference] stages (s, host clock, synchronised; {smi}): "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; launches of the "
+          f"counted stages {dict((k, v) for k, v in total.items() if v)}")
+    return total
+
+
 class Results:
     """Per-kernel errors and times; a check over its bar raises at once."""
 
@@ -3649,7 +4019,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-20) to run after 1 "
+                        help="comma-separated phases (3-21) to run after 1 "
                              "and 2 (20 runs 19 first); default all, which "
                              "also prints the kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -3777,6 +4147,15 @@ def main() -> None:
             by_path["cli"] = cli_path(device, smi, work)
             if run(20):
                 by_path["metrics"] = eval_path(device, smi, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if run(21):
+        import shutil
+        import tempfile
+
+        work = tempfile.mkdtemp(prefix="infodiff_reference_")
+        try:
+            by_path["reference"] = reference_path(device, smi, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
     run(None)  # the last phase's time

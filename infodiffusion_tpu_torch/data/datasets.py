@@ -7,9 +7,18 @@ deterministic synthetic sets (``data_dir='synthetic'`` or
 ``INFODIFF_SYNTHETIC_DATA=1``; ``INFODIFF_SYNTHETIC_N`` images), so a
 synthetic set is byte for byte the JAX package's. The transform table
 (resize, flip, normalize, shuffle) is the JAX package's; see
-``dataset_flags``. The image folders decode with PIL, imported when a
-batch is decoded (the JAX package's own fallback; its native decoder is
-not ported yet). ``drop_last`` everywhere (``loader.py``).
+``dataset_flags``. The image folders decode with the native batcher
+(``data/native.py``: JPEG through libjpeg, or nvJPEG where libjpeg is
+absent, PNG through zlib, on a thread pool with the transforms fused in;
+with libjpeg, bit for bit the JAX package's); a slot it fails (a CMYK
+JPEG, a truncated or unreadable file) is retried through PIL, imported
+then, which converts the former and raises on the latter. Where PIL is absent (the
+card's machine) a failed slot raises an IOError naming the file. Without
+the native library every image goes through PIL, as in the JAX package,
+except where a card is visible: there a library that did not build raises
+(``INFODIFF_DISABLE_NATIVE=1`` asks for PIL). Every image PIL decodes is
+counted in ``native.counts["pil"]``.
+``drop_last`` everywhere (``loader.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from infodiffusion_tpu_torch.data import native
 
 # images are held as uint8 (or dsprites' 0/1) and normalized per-batch in
 # the loader — CelebA at f32 would be ~10 GB host RAM.
@@ -62,8 +74,10 @@ class ArrayDataset:
 
 @dataclasses.dataclass
 class ImageFolderDataset:
-    """Lazy JPEG/PNG folder dataset: decodes and transforms per batch, with
-    PIL (CelebA is ~200k JPEGs; decoding lazily keeps host RAM flat)."""
+    """Lazy JPEG/PNG folder dataset: decodes and transforms per batch
+    (CelebA is ~200k JPEGs; decoding lazily keeps host RAM flat), with the
+    native batcher and PIL for the slots it fails (see the module
+    docstring)."""
 
     files: List[str]
     size: int
@@ -72,11 +86,35 @@ class ImageFolderDataset:
     attrs: Optional[np.ndarray] = None
     normalize: str = "pm1"
 
+    def __post_init__(self):
+        self._native = None
+        self._native_tried = False
+
     def __len__(self):
         return len(self.files)
 
+    def _native_batcher(self):
+        if not self._native_tried:
+            self._native_tried = True
+            if native.native_available():
+                self._native = native.NativeImageBatcher(
+                    self.files, self.size, self.center_crop, self.d2c)
+            elif torch.cuda.is_available() \
+                    and not os.environ.get("INFODIFF_DISABLE_NATIVE"):
+                # no quiet single-threaded PIL decode beside a card
+                raise RuntimeError(
+                    f"the native image library is unavailable:\n"
+                    f"{native.build_error()}\n(INFODIFF_DISABLE_NATIVE=1 "
+                    f"decodes every image through PIL instead)")
+        return self._native
+
     def _load_one(self, path: str) -> np.ndarray:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as exc:
+            raise IOError(
+                f"{path}: the native decoder could not decode this file and "
+                f"PIL, which would retry it, is not installed") from exc
 
         img = Image.open(path).convert("RGB")
         if self.d2c:
@@ -97,10 +135,18 @@ class ImageFolderDataset:
             img = img.crop((left, top, left + self.size, top + self.size))
         else:
             img = img.resize((self.size, self.size), Image.BILINEAR)
+        native.counts.update(pil=1)
         return np.asarray(img, dtype=np.uint8)
 
     def _decode_u8(self, idx: np.ndarray) -> np.ndarray:
-        return np.stack([self._load_one(self.files[i]) for i in idx])
+        idx = np.asarray(idx)
+        nat = self._native_batcher()
+        if nat is None:
+            return np.stack([self._load_one(self.files[i]) for i in idx])
+        x, failed = nat.decode_with_failures(idx)
+        for pos in failed:
+            x[pos] = self._load_one(self.files[int(idx[pos])])
+        return x
 
     def get_batch(self, idx: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         x = self._decode_u8(idx).astype(np.float32) / 255.0 * 2.0 - 1.0

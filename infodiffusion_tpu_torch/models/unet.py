@@ -65,6 +65,10 @@ class _UNetSkeleton(nn.Module):
             raise ValueError(f"aux_mode must be one of {AUX_MODES}, got "
                              f"{aux_mode!r}")
         self._plan = []  # (kind, module name, conditioning) in order
+        # the reference's ModuleList indices follow from these
+        # (interop.reference_key_map)
+        self.levels = len(ch_mult)
+        self.num_res_blocks = num_res_blocks
         n = 0
 
         def block(kind, in_c, out_c, use_attn):

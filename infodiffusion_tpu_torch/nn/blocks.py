@@ -1,5 +1,5 @@
-"""ResBlocks, resampling and the latent MLP block
-(JAX counterpart: ``infodiffusion_tpu/nn/blocks.py``).
+"""ResBlocks, resampling (2-D, and the 1-D latent blocks) and the latent
+MLP block (JAX counterpart: ``infodiffusion_tpu/nn/blocks.py``).
 
 Image blocks take and return NCHW tensors in ``channels_last`` memory
 format, so cuDNN's convs run NHWC-native and the NHWC view the norm and
@@ -431,6 +431,51 @@ class UpSample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+class LatentConv(nn.Module):
+    """Flax ``nn.Conv`` with a kernel of 3 over ``[B, L, C]``: ``weight``
+    [O, I, 3], padding (1, 1), computed in ``dtype`` with f32
+    parameters."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 stride: int = 1):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.weight = nn.Parameter(
+            xavier_(torch.empty(channels, channels, 3)))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2),
+                     self.weight.to(self.dtype), self.bias.to(self.dtype),
+                     stride=self.stride, padding=1)
+        return y.transpose(1, 2)
+
+
+class LatentDownSample(nn.Module):
+    """A stride-2 1-D conv over ``[B, L, C]`` -> ``[B, ceil(L / 2), C]``
+    (reference: modules.py:96-108; defined there, used by no model)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = LatentConv(channels, dtype, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class LatentUpSample(nn.Module):
+    """Each position repeated twice, then a 1-D conv: ``[B, L, C]`` ->
+    ``[B, 2 L, C]`` (reference: modules.py:111-126; used by no model)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = LatentConv(channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x.repeat_interleave(2, dim=1))
 
 
 class MLPLNAct(nn.Module):

@@ -6,6 +6,7 @@
     model = build_model(cfg)                      # an InfoDiff, on the card
     pipe = InfoDiffusionPipeline(cfg, model)
     pipe = InfoDiffusionPipeline.from_checkpoint(cfg)  # or a trained one
+    pipe = InfoDiffusionPipeline.from_torch_checkpoint(cfg, "model-50.pth")
     imgs = pipe.generate(16, a=latents, steps=100)
     a = pipe.encode(imgs)                         # semantic latents
     xT = pipe.invert(imgs)                        # reverse DDIM, x0 -> xT
@@ -15,7 +16,9 @@
 
 Images are NHWC f32 on the model's device; outputs are clipped to [-1, 1].
 ``from_checkpoint`` loads ``model-{epoch}`` from the runner's checkpoint
-directory (the port's own format, ``train/checkpoint.py``).
+directory (the port's own format, ``train/checkpoint.py``);
+``from_torch_checkpoint`` a reference ``model-{epoch}.pth``
+(``interop.load_torch_checkpoint``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,22 @@ class InfoDiffusionPipeline:
         model = build_model(cfg, device=resolve_device(device))
         restore_params(checkpoint_root(cfg),
                        cfg.epochs if epoch is None else epoch, model)
+        return cls(cfg, model.eval(), seed=seed)
+
+    @classmethod
+    def from_torch_checkpoint(cls, cfg, pth_path: str, device=None,
+                              seed: int = 0) -> "InfoDiffusionPipeline":
+        """The pipeline over a reference ``.pth`` (the reference's
+        ``torch.save(model.state_dict())``), loaded as the reference's eval
+        loads it (unused keys such as the dead ``crossattn.*`` ignored, a
+        missing one raising); ``device`` as the runner resolves it."""
+        from infodiffusion_tpu_torch.interop import load_torch_checkpoint
+        from infodiffusion_tpu_torch.models.wrappers import build_model
+        from infodiffusion_tpu_torch.runner import resolve_device
+
+        cfg = cfg.with_dataset_config()
+        model = build_model(cfg, device=resolve_device(device))
+        load_torch_checkpoint(model, pth_path)
         return cls(cfg, model.eval(), seed=seed)
 
     def _sample(self, xT, a, steps, generator=None, n=16) -> torch.Tensor:

@@ -32,6 +32,7 @@ scatter; ``attr_classification``'s probe starts from the port's own draws
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 import signal
@@ -43,6 +44,7 @@ import torch
 
 from infodiffusion_tpu_torch.config import Config, generate_exp_string
 from infodiffusion_tpu_torch.data import DataLoader, LatentDataset, get_dataset
+from infodiffusion_tpu_torch.data import native
 from infodiffusion_tpu_torch.data.datasets import dataset_flags
 from infodiffusion_tpu_torch.diffusion.samplers import (
     DiffusionProcess,
@@ -537,9 +539,15 @@ def _to_host_async(t: torch.Tensor):
     return host, done
 
 
+# which writer served each FID batch: "native" (the library's thread pool,
+# data/native.py) or "imaging" (the standard-library writer)
+FID_WRITERS: collections.Counter = collections.Counter()
+
+
 def _save_fid_batch(cfg, root, pending) -> bool:
-    """One PNG per sample, ``sample-{n:06d}.png``; False once
-    ``--sampling_number`` is reached."""
+    """One PNG per sample, ``sample-{n:06d}.png``, through the native PNG
+    writer, or ``imaging.write_png_batch`` where the library is
+    unavailable; False once ``--sampling_number`` is reached."""
     (host, done), sample_num = pending
     if done is not None:
         done.synchronize()
@@ -547,7 +555,11 @@ def _save_fid_batch(cfg, root, pending) -> bool:
     n = min(len(u8), cfg.sampling_number - sample_num)
     paths = [os.path.join(root, f"sample-{sample_num + bn:06d}.png")
              for bn in range(n)]
-    write_png_batch(paths, u8[:n])
+    if native.write_png_batch(paths, u8[:n]):
+        FID_WRITERS["native"] += 1
+    else:
+        write_png_batch(paths, u8[:n])
+        FID_WRITERS["imaging"] += 1
     return n == len(u8)
 
 

@@ -210,12 +210,16 @@ def test_dsprites_reader_equals_jax(tmp_path, size):
                                   want.get_batch(np.arange(3))[0])
 
 
-def test_image_folders_equal_jax(tmp_path, monkeypatch):
+@pytest.mark.parametrize("native", [False, True], ids=["pil", "native"])
+def test_image_folders_equal_jax(tmp_path, monkeypatch, native):
     """celeba (attrs, the train split, resize and centre crop) and the
-    plain folders (chairs, ffhq), decoded with PIL on both sides (the JAX
-    native decoder switched off)."""
-    monkeypatch.setattr(jds.ImageFolderDataset, "_native_batcher",
-                        lambda self: None)
+    plain folders (chairs, ffhq), decoded with PIL on both sides (each
+    package's native decoder switched off) or by each package's native
+    batcher (libjpeg and the same transforms on both sides): bit for bit."""
+    if not native:
+        for m in (pds, jds):
+            monkeypatch.setattr(m.ImageFolderDataset, "_native_batcher",
+                                lambda self: None)
     rng = np.random.RandomState(3)
     root = tmp_path / "celeba"
     imdir = root / "img_align_celeba"

@@ -225,12 +225,16 @@ def test_build_model_defaults_to_the_card(monkeypatch):
 @pytest.mark.parametrize("name", ["kaiming_normal_relu", "lecun_normal"])
 def test_initializers_in_distribution(name):
     """Same std and truncation as the JAX initializers on a [256, 512]
-    kernel (fan_in 256), to 3% (2.6e5 draws)."""
+    kernel (fan_in 256), to 3% (2.6e5 draws). The torch draws come from a
+    fixed seed in a forked generator, so they do not depend on which tests
+    ran before in the process."""
     fan_in, fan_out = 256, 512
     init = (jinit.kaiming_normal_relu() if name == "kaiming_normal_relu"
             else flax_init.lecun_normal())
     want = np.asarray(init(jax.random.PRNGKey(0), (fan_in, fan_out)))
-    got = getattr(pinit, name + "_")(torch.empty(fan_out, fan_in)).numpy()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        got = getattr(pinit, name + "_")(torch.empty(fan_out, fan_in)).numpy()
     assert abs(got.std() / want.std() - 1) < 0.03
     assert abs(np.abs(got).max() / np.abs(want).max() - 1) < 0.25
 
