@@ -200,6 +200,29 @@ on the card. Phases, each printing one line or a few, any failure raising:
    launches per stage (training, generation and CrossAttnBlock make the
    kernels line's ``reference`` path).
 
+22. the parallel layouts (``parallel/``): first a probe, in two processes
+   that share the one card over gloo, of the collectives the two-rank
+   checks call, each as the port calls it (all_reduce, list all_gather,
+   list reduce_scatter, batch_isend_irecv), on CUDA tensors, its answer on
+   a line of its own. Then, always, at world size 1 over
+   NCCL (a FileStore rendezvous in this process), the flagship training
+   step (64px, B=128, bf16) one-process, data-parallel and FSDP from the
+   same weights: losses, grad norms and parameters against the
+   one-process step (bitwise where the one-process step repeats itself
+   bitwise), and exact launches per kernel of the two laid-out steps (K1
+   124, K1-bwd 124, K2 12, K3b 12 on the dense contract, as phase 19
+   counts them); ``python -m torch.distributed.run --nproc_per_node 1 -m
+   infodiffusion_tpu_torch`` training the mnist recipe with ``--fsdp`` for
+   one epoch, then resuming it for a second, with exactly one metrics file
+   and one checkpoint per epoch written. Then two ranks on the card, each
+   check only where the probe passed every collective it calls: the
+   flagship step at B=128 split 64/64, data-parallel and FSDP (which
+   splits parameters over the two ranks), against the one-process B=128
+   step (losses and grad norm within 2e-3, the gradient within 1e-2
+   relative L2), and the 2-way ring at the 512px attention's shape (B=1,
+   N=16384, C=128, bf16) against the one-rank route (within 2e-2 of max
+   |out|). A check the probe stops claims no result from the card.
+
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line);
 ``--only 20`` runs 19 first.
 
@@ -226,6 +249,7 @@ import math
 import os
 import re
 import subprocess
+import sys
 import time
 import warnings
 
@@ -4019,7 +4043,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-21) to run after 1 "
+                        help="comma-separated phases (3-22) to run after 1 "
                              "and 2 (20 runs 19 first); default all, which "
                              "also prints the kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -4158,12 +4182,406 @@ def main() -> None:
             by_path["reference"] = reference_path(device, smi, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    if run(22):
+        import shutil
+        import tempfile
+
+        work = tempfile.mkdtemp(prefix="infodiff_parallel_")
+        try:
+            by_path["parallel"] = parallel_path(device, smi, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     run(None)  # the last phase's time
     if not only:
         print(json.dumps({"kernels": kernel_lines(results, by_path)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# phase 22: the parallel layouts. The card's machine has one card, so NCCL
+# runs at world size 1 there; two ranks share the card over gloo only where
+# the probe shows gloo moves CUDA tensors
+PARALLEL_TOL = {"two_rank": 2e-3, "ring": 2e-2}
+RING_SHAPE = (1, 16384, 128)  # the 512px InfoDiff's level-2 attention
+PARALLEL_CLI = ["--model", "diff", "--prior", "regular", "--dataset", "mnist",
+                "--a_dim", "32", "--data_dir", "synthetic",
+                "--diffusion_steps", "50", "--batch_size", "16", "--r_seed",
+                "7", "--ch_mult", "1,2", "--attn", "1", "--save_epochs", "1",
+                "--fsdp"]
+PARALLEL_CLI_N = 64  # synthetic images: 4 steps an epoch
+
+
+# the collectives each two-rank check calls, as its code calls them: the
+# step's batch means and flat gradient bucket (all_reduce), the MMD's latent
+# gather and the gathered state (list all_gather), FSDP's split gradients
+# (list reduce_scatter, parallel/layout.py); the ring's K/V rotation
+# (batch_isend_irecv) and its output gather
+PROBE_OPS = ("all_reduce", "all_gather", "reduce_scatter",
+             "batch_isend_irecv")
+TWO_RANK_OPS = {"dp": ("all_reduce", "all_gather"),
+                "fsdp": ("all_reduce", "all_gather", "reduce_scatter"),
+                "ring": ("batch_isend_irecv", "all_gather")}
+# relative L2 error of the two-rank step's gradient (Adam's first moment,
+# gathered whole) against the one-process step's: the weight gradients
+# come out of the bf16 convolutions rounded to bf16 (2**-8 relative), and
+# the two ranks' shares are rounded apart before they are summed
+GRAD_TOL = 1e-2
+# the metrics held to PARALLEL_TOL["two_rank"]: the losses and the grad
+# norm (the recon term, a vanishing share of the loss on which a relative
+# bar says nothing, is printed beside them)
+TWO_RANK_KEYS = ("loss", "denoise", "mmd", "grad_norm")
+
+
+def _probe_rank(ops=PROBE_OPS):
+    """Each collective of ``ops``, called on CUDA tensors over this group
+    as the layouts and the ring call it: {name: 'ok', 'wrong result' or
+    the error}."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    of = lambda r: torch.arange(4, dtype=torch.float32, device=dev) + r  # noqa: E731
+    x = of(rank)
+    total = sum(of(r) for r in range(world))
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=dist.group.WORLD)
+        return torch.equal(y, total)
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous(), group=dist.group.WORLD)
+        return all(torch.equal(p, of(r)) for r, p in enumerate(parts))
+
+    def reduce_scatter():
+        n = 4 // world
+        piece = torch.empty(n, device=dev)
+        dist.reduce_scatter(piece, list(x.chunk(world)),
+                            group=dist.group.WORLD)
+        return torch.equal(piece, total[rank * n:(rank + 1) * n])
+
+    def batch_isend_irecv():
+        buf = torch.empty_like(x)
+        group = dist.group.WORLD
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, (rank + 1) % world, group),
+                dist.P2POp(dist.irecv, buf, (rank - 1) % world, group)]):
+            req.wait()
+        return torch.equal(buf, of((rank - 1) % world))
+
+    fns = dict(zip(PROBE_OPS, (all_reduce, all_gather, reduce_scatter,
+                               batch_isend_irecv)))
+    out = {}
+    for name in ops:
+        fn = fns[name]
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            out[name] = "ok" if ok else "wrong result"
+        except Exception as e:  # noqa: BLE001 - the probe reports it
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+    return out
+
+
+def _two_rank(checks, ref_grad, seed=0):
+    """Two ranks on the card over gloo, the ``checks`` of TWO_RANK_OPS the
+    probe let through: the flagship step at B=128 split 64/64, data-
+    parallel and FSDP, with its gradient (Adam's first moment, gathered
+    whole) against the one-process step's (``ref_grad``, a file); the
+    2-way ring at RING_SHAPE against the one-rank route (rank 0's)."""
+    import torch.distributed as dist
+
+    from infodiffusion_tpu_torch.ops.attention import single_head_attention
+    from infodiffusion_tpu_torch.parallel.layout import Layout, describe
+    from infodiffusion_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from infodiffusion_tpu_torch.parallel.ring_attention import ring_attention
+
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    want = [t.to(device) for t in torch.load(ref_grad)] \
+        if {"dp", "fsdp"} & set(checks) else None
+    for kind in ("dp", "fsdp"):
+        if kind not in checks:
+            continue
+        model = train_model(torch.bfloat16, device, SIZE, seed)
+        tx = make_optimizer(LR, 50, 1000)
+        state = create_train_state(model, 0, tx)
+        layout = Layout.for_model(model, make_mesh(2), fsdp=kind == "fsdp")
+        state = layout.shard_state(model, state)
+        x = shard_batch(layout.mesh, _parallel_batch(device))
+        step = make_train_step(model, tx, layout=layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, x, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = [layout.whole(n, t) for n, t in zip(state.params,
+                                                  state.opt_state.mu)]
+        diff = sum((g - w).square().sum() for g, w in zip(got, want))
+        norm = sum(w.square().sum() for w in want)
+        out[kind] = {"rows": int(x.shape[0]), "step_s": dt,
+                     "layout": describe(layout),
+                     "grad_rel": float((diff / norm).sqrt()),
+                     **{k: float(v) for k, v in metrics.items()}}
+        del model, state, step, x, got
+        torch.cuda.empty_cache()
+    if "ring" in checks:
+        rs = np.random.RandomState(seed + 1)
+        q, k, v = (torch.from_numpy(rs.randn(*RING_SHAPE).astype(np.float32))
+                   .to(device, torch.bfloat16) for _ in range(3))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring = ring_attention(q, k, v, dist.group.WORLD)
+            torch.cuda.synchronize()
+            out["ring"] = {"s": time.perf_counter() - t0}
+            if dist.get_rank() == 0:
+                dense = single_head_attention(q, k, v)
+                out["ring"]["abs"], out["ring"]["rel"] = rel_err(
+                    ring.float(), dense.float())
+    return out
+
+
+def _parallel_batch(device):
+    return torch.from_numpy(np.random.RandomState(SIZE).randn(
+        BATCH, SIZE, SIZE, 3).astype(np.float32)).to(device)
+
+
+def _spawn(target, world, timeout, work, **args):
+    from infodiffusion_tpu_torch.parallel.launch import spawn
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return spawn(f"chip_smoke:{target}", world, args, workdir=work,
+                 timeout=timeout, backend="gloo", pythonpath=[here],
+                 env={"INFODIFF_FORCE_CPU": ""})
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[n] - b[n]).abs().max().item() for n in a)
+
+
+def _one_rank_steps(device, smi, ref_grad):
+    """World size 1 over NCCL: the flagship step one-process (twice, to see
+    whether it repeats bitwise), data-parallel and FSDP, from one set of
+    weights; returns (the one-process metrics, the layouts' launches) and
+    writes the one-process step's Adam first moment to ``ref_grad``."""
+    import torch.distributed as dist
+
+    from infodiffusion_tpu_torch.parallel.layout import Layout, describe
+    from infodiffusion_tpu_torch.parallel.mesh import make_mesh
+
+    base = train_model(torch.bfloat16, device, SIZE)
+    gn_u, gn_e, at_u, at_e = flagship_sites(base)
+    want = launch_counts(k1=gn_u + gn_e, k1_bwd=gn_u + gn_e, k2=at_u + at_e,
+                         dense=at_u + at_e)
+    if (want["adagn"], want["attention"]) != (124, 12):
+        raise AssertionError(f"flagship sites {gn_u, gn_e, at_u, at_e}")
+    x = _parallel_batch(device)
+    runs, total = {}, zero_launches()
+    for label, kind in (("one-process", None), ("one-process again", None),
+                        ("dp", "dp"), ("fsdp", "fsdp")):
+        model = copy.deepcopy(base)
+        tx = make_optimizer(LR, 50, 1000)
+        state = create_train_state(model, 0, tx)
+        layout = None
+        if kind is not None:
+            layout = Layout.for_model(model, make_mesh(1),
+                                      fsdp=kind == "fsdp")
+            state = layout.shard_state(model, state)
+        step = make_train_step(model, tx, layout=layout)
+        (state, metrics), dt, n = timed(lambda: step(state, x, 0))
+        if kind is not None:
+            expect(f"parallel world 1 {kind}", n, want)
+            for key in total:
+                total[key] += n[key]
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, params)
+        if label == "one-process":
+            torch.save([t.detach().cpu() for t in state.opt_state.mu],
+                       ref_grad)
+        print(f"[parallel] world 1 NCCL, {label} ({describe(layout)}): "
+              f"{dt:.3f} s (host clock, synchronised, the step's first call; "
+              f"{smi}); loss {runs[label][0]['loss']:.6f}, grad_norm "
+              f"{runs[label][0]['grad_norm']:.6f}; launches "
+              f"{ {k: v for k, v in n.items() if v} }")
+        del model, state, step
+    ref_m, ref_p = runs["one-process"]
+    repeat = _max_diff(runs["one-process again"][1], ref_p)
+    for label in ("dp", "fsdp"):
+        m, p = runs[label]
+        d = _max_diff(p, ref_p)
+        dm = {k: abs(m[k] - ref_m[k]) for k in ref_m}
+        print(f"[parallel] world 1 {label} against one process: params max "
+              f"|diff| {d:.3e}, metrics |diff| "
+              f"{ {k: f'{v:.3e}' for k, v in dm.items()} } (the one-process "
+              f"step against itself: {repeat:.3e})")
+        if repeat == 0.0:
+            if d != 0.0 or any(dm.values()):
+                raise AssertionError(f"world 1 {label} not bitwise the "
+                                     f"one-process step")
+        elif d > 4 * repeat or any(
+                v > PARALLEL_TOL["two_rank"] * abs(ref_m[k])
+                for k, v in dm.items()):
+            raise AssertionError(f"world 1 {label}: params {d:.3e}, "
+                                 f"metrics {dm}")
+    print(f"[parallel] world 1: dp and fsdp "
+          f"{'bitwise' if repeat == 0.0 else 'within the repeat bars'} of "
+          f"the one-process step (at one rank FSDP splits no parameter, so "
+          f"this covers its unsplit path); launches per laid-out step "
+          f"exactly {want}")
+    del base, runs
+    torch.cuda.empty_cache()
+    return ref_m, total
+
+
+def _torchrun_cli(work, smi):
+    """The mnist recipe through torchrun at one rank: -e 1, then -e 2
+    --resume; exactly one metrics file and one checkpoint an epoch.
+    Returns the lines to print."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, INFODIFF_SYNTHETIC_N=str(PARALLEL_CLI_N),
+               PYTHONPATH=here)
+    env.pop("INFODIFF_FORCE_CPU", None)
+    cli_dir = os.path.join(work, "cli")
+    os.makedirs(cli_dir)
+    report_lines = []
+    for extra in (["--mode", "train", "-e", "1"],
+                  ["--mode", "train", "-e", "2", "--resume"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "infodiffusion_tpu_torch",
+             *PARALLEL_CLI, *extra], cwd=cli_dir, env=env,
+            capture_output=True, text=True, timeout=300)
+        dt = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"torchrun {extra}: {out.stdout[-2000:]}"
+                                 f"{out.stderr[-3000:]}")
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("[parallel]", "Resumed", "Saved"))]
+        report_lines.append(
+            f"[parallel] torchrun --nproc_per_node 1 {' '.join(extra)}: "
+            f"{dt:.1f} s wall (process start included, beside the world-1 "
+            f"steps and the probe; {smi}): {lines}")
+    files = sorted(os.path.relpath(os.path.join(d, f), cli_dir)
+                   for d, _, fs in os.walk(cli_dir) for f in fs)
+    want = ["logs/mnist_32d_0.1mmd/metrics.jsonl",
+            "models/mnist_32d_0.1mmd/model-1/meta.json",
+            "models/mnist_32d_0.1mmd/model-1/state.pt",
+            "models/mnist_32d_0.1mmd/model-2/meta.json",
+            "models/mnist_32d_0.1mmd/model-2/state.pt"]
+    if files != want:
+        raise AssertionError(f"torchrun files {files}")
+    root = os.path.join(cli_dir, "models", "mnist_32d_0.1mmd")
+    steps = [json.load(open(os.path.join(root, f"model-{e}", "meta.json")))
+             ["step"] for e in (1, 2)]
+    with open(os.path.join(cli_dir, files[0])) as f:
+        losses = [json.loads(ln)["train/loss"] for ln in f]
+    if steps != [4, 8] or len(losses) != 2 or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"torchrun: steps {steps}, losses {losses}")
+    report_lines.append(
+        f"[parallel] torchrun: one metrics file ({len(losses)} lines, "
+        f"losses {losses}), checkpoints model-1 (step 4) and model-2 "
+        f"(step 8), nothing else written")
+    return report_lines
+
+
+def _probe_op(op: str, work: str) -> str:
+    """One collective, in two fresh processes (a collective gloo refuses on
+    CUDA tensors may abort the process rather than raise)."""
+    try:
+        ranks = _spawn("_probe_rank", 2, 120, work, ops=(op,))
+    except TimeoutError:
+        return "hung (120 s)"
+    except RuntimeError as e:
+        # the rank that failed first, not its peer's "connection closed"
+        lines = [ln.strip() for ln in str(e).splitlines()
+                 if ("rror" in ln or "what()" in ln or "terminate" in ln)
+                 and "Connection closed" not in ln]
+        return "aborted: " + (lines[0][:200] if lines else
+                              str(e).splitlines()[0][:200])
+    bad = [r[op] for r in ranks if r[op] != "ok"]
+    return bad[0] if bad else "ok"
+
+
+def parallel_path(device, smi, work):
+    """Phase 22 (see the module docstring). Returns the launches of the
+    world-1 data-parallel and FSDP steps. The probe's processes and the
+    torchrun runs proceed beside the world-1 steps."""
+    import concurrent.futures
+
+    import torch.distributed as dist
+
+    ref_grad = os.path.join(work, "ref_grad.pt")
+    with concurrent.futures.ThreadPoolExecutor(len(PROBE_OPS) + 1) as pool:
+        probes = {op: pool.submit(_probe_op, op, work) for op in PROBE_OPS}
+        cli = pool.submit(_torchrun_cli, work, smi)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(work, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            nccl = _probe_rank()
+            print(f"[parallel] NCCL at world size 1 (FileStore rendezvous), "
+                  f"the same collectives: {nccl}")
+            if any(v != "ok" for v in nccl.values()):
+                raise AssertionError(f"NCCL at world size 1: {nccl}")
+            ref, launches = _one_rank_steps(device, smi, ref_grad)
+        finally:
+            dist.destroy_process_group()
+        verdict = {op: f.result() for op, f in probes.items()}
+        for line in cli.result():
+            print(line)
+    failed = [op for op, v in verdict.items() if v != "ok"]
+    runs = [c for c, ops in TWO_RANK_OPS.items()
+            if not set(ops) & set(failed)]
+    print(f"[parallel probe] two processes on one card over gloo with CUDA "
+          f"tensors: {verdict}: "
+          f"{'FAILED for ' + ', '.join(failed) if failed else 'PASSED'}; "
+          f"two-rank checks that run: {runs or 'none'}")
+    for c in TWO_RANK_OPS:
+        if c not in runs:
+            print(f"[parallel] the two-rank {c} check calls "
+                  f"{[op for op in TWO_RANK_OPS[c] if op in failed]}, which "
+                  f"the probe failed: it does not run on the card, and no "
+                  f"result of it is claimed from the card")
+    if not runs:
+        return launches
+    two = _spawn("_two_rank", 2, 300, work, checks=runs, ref_grad=ref_grad)
+    r0 = two[0]
+    for kind in ("dp", "fsdp"):
+        if kind not in runs:
+            continue
+        r = r0[kind]
+        rel = {k: abs(r[k] - ref[k]) / abs(ref[k]) for k in TWO_RANK_KEYS}
+        print(f"[parallel] two ranks on the card over gloo, {r['layout']}, "
+              f"B=128 as 64 + 64 rows: loss {r['loss']:.6f}, grad_norm "
+              f"{r['grad_norm']:.6f}, recon {r['recon']:.6e} against one "
+              f"process's {ref['loss']:.6f}, {ref['grad_norm']:.6f}, "
+              f"{ref['recon']:.6e} (rel "
+              f"{ {k: f'{v:.3e}' for k, v in rel.items()} }, bar "
+              f"{PARALLEL_TOL['two_rank']}); gradient rel L2 "
+              f"{r['grad_rel']:.3e} (bar {GRAD_TOL}); step "
+              f"{r['step_s']:.3f} s (host clock, the first call; {smi})")
+        if r["rows"] != BATCH // 2 or r["grad_rel"] > GRAD_TOL or any(
+                v > PARALLEL_TOL["two_rank"] for v in rel.values()):
+            raise AssertionError(f"two-rank {kind} step: {r}")
+    if "ring" in runs:
+        r = r0["ring"]
+        print(f"[parallel] two ranks on the card over gloo: ring "
+              f"{RING_SHAPE} bf16 2-way against the one-rank route: max abs "
+              f"{r['abs']:.3e}, rel {r['rel']:.3e} (bar "
+              f"{PARALLEL_TOL['ring']}), {r['s']:.3f} s (host clock; {smi})")
+        if not r["rel"] <= PARALLEL_TOL["ring"]:
+            raise AssertionError(f"two-rank ring: {r['rel']:.3e}")
+    return launches
 
 
 def kernel_lines(results, by_path):

@@ -7,10 +7,17 @@ The flags, defaults, required markers and choices are the JAX CLI's (the
 reference's ``run.py`` flags plus the JAX package's own), so every
 ``scripts/*.sh`` line and every ``run.py`` command runs unchanged. The run
 goes to the card; ``INFODIFF_FORCE_CPU=1`` runs it on the CPU, and with
-neither it raises. The flags that need more than one device
-(``--mesh_devices`` > 1, ``--multihost``, ``--fsdp``, ``--tp``/``--pp``/
-``--sp`` > 1) raise ``NotImplementedError``; ``--turbo int8x`` is refused
-by the ``Config``.
+neither it raises. ``--turbo int8x`` is refused by the ``Config``.
+
+Training across devices runs one process a device under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m infodiffusion_tpu_torch --mode train ... [--fsdp] [--tp K]
+
+(``--nnodes`` / ``--rdzv_endpoint`` and ``--multihost`` across nodes;
+``--pp S`` for ``train_latent_ddim``, ``--sp S`` for ring attention). The
+process group starts first (``parallel.multihost.maybe_initialize``), as
+the JAX CLI starts its distributed runtime.
 """
 
 from __future__ import annotations
@@ -99,23 +106,25 @@ def build_parser(require_mode: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 activations (schedule math stays f32)")
     p.add_argument("--mesh_devices", type=int, default=None,
-                   help="data-parallel size (the port runs on one device; "
-                        "more raises)")
+                   help="data-parallel size: the ranks of the run "
+                        "(torchrun's world size)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host runtime (not ported: raises)")
+                   help="start the process group (torchrun's environment "
+                        "starts it anyway)")
     p.add_argument("--resume", action="store_true",
                    help="resume training from the latest checkpoint")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params and optimizer state (not ported: "
-                        "raises)")
+                   help="shard params and optimizer state over the data "
+                        "ranks")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (more than 1 raises)")
+                   help="tensor-parallel size (output channels over the "
+                        "'model' ranks)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages of train_latent_ddim (more than 1 "
-                        "raises)")
+                   help="pipeline stages of train_latent_ddim (GPipe over "
+                        "the LatentUNet middle)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel attention size (more than 1 "
-                        "raises)")
+                   help="sequence-parallel attention size (ring attention "
+                        "from INFODIFF_SP_MIN_TOKENS tokens)")
     p.add_argument("--turbo", choices=list(TURBO_CHOICES), default="",
                    help="inference tier of the image samplers: 'int8' runs "
                         "the UNet conv bodies W8A8 with scales calibrated "
@@ -165,4 +174,8 @@ def dispatch(cfg: Config, device=None):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    return dispatch(parse_args(argv))
+    from infodiffusion_tpu_torch.parallel.multihost import maybe_initialize
+
+    cfg = parse_args(argv)
+    maybe_initialize(cfg.multihost)
+    return dispatch(cfg)

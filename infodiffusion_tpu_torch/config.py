@@ -6,9 +6,8 @@ the same per-dataset override table and the same experiment-naming
 contract. The port imports nothing of the JAX package, so this is its own
 copy; ``tests/test_torch_ops.py`` holds the two against each other field by
 field. Fields that name a multi-device layout (``mesh_devices``,
-``multihost``, ``fsdp``, ``tp``, ``pp``, ``sp``) are carried so that every
-command line parses to the same ``Config``; the runner refuses any value
-that needs more than one device (``runner.check_single_device``).
+``multihost``, ``fsdp``, ``tp``, ``pp``, ``sp``) mean what they mean in
+the JAX package, one process a device (``runner.parallel_plan``).
 """
 
 from __future__ import annotations
@@ -96,8 +95,7 @@ class Config:
     turbo: str = ""
     # bf16 activations in the backbone (schedule math stays f32)
     bf16: bool = False
-    # multi-device layouts: the port runs on one device and refuses any
-    # value that needs more (runner.check_single_device)
+    # multi-device layouts (runner.parallel_plan)
     mesh_devices: Optional[int] = None
     multihost: bool = False
     # resume training from the latest checkpoint

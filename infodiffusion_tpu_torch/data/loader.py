@@ -15,6 +15,12 @@ memory with ``non_blocking=True``, and are normalized there to [-1, 1]
 and ships f32 instead, as in the JAX package. Float data (latents) and
 dsprites' raw 0/1 pixels always ship f32. Attributes stay numpy arrays on
 the host. Batches are ``[B, H, W, C]`` tensors (``[B, d]`` for latents).
+
+``batch_size`` is the **global** batch. Under data parallelism ``rows``
+names the rows of each global batch this rank assembles
+(``parallel.multihost.local_row_indices``): every rank draws the same
+order and flips from ``seed``, and the union of the ranks' rows is the
+one-process batch.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, *, device,
                  shuffle: bool = False, flip: bool = False, seed: int = 0,
-                 with_attrs: bool = False, prefetch: int = 2):
+                 with_attrs: bool = False, prefetch: int = 2, rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = (np.arange(batch_size) if rows is None
+                     else np.asarray(rows))
         self.device = torch.device(device)
         self.shuffle = shuffle
         self.flip = flip
@@ -83,6 +91,9 @@ class DataLoader:
         return bool(ok and ok())
 
     def _assemble(self, idx: np.ndarray, flip_mask=None, u8: bool = False):
+        idx = idx[self.rows]
+        if flip_mask is not None:
+            flip_mask = flip_mask[self.rows]
         if u8:
             x, a = self.dataset.get_batch_u8(idx)
         else:
@@ -160,4 +171,4 @@ def h2d_bytes_per_batch(loader: DataLoader) -> int:
     """Bytes one batch moves host to device (pixels only)."""
     example = loader.dataset.get_batch_u8(np.arange(1))[0]
     per_row = int(np.prod(example.shape[1:]))
-    return loader.batch_size * per_row * (1 if loader.u8_transfer() else 4)
+    return len(loader.rows) * per_row * (1 if loader.u8_transfer() else 4)

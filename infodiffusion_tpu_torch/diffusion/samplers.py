@@ -33,6 +33,15 @@ per-forward route (K5) is asked for.
 ``eps_fn(x, t, a)`` takes an int64 ``t`` [B]; random draws come from an
 explicit ``torch.Generator`` on the device, or are injected with
 ``noises=`` (tests hand both implementations the same numbers).
+
+The image processes take ``group=`` (a data process group): ``sampling``
+then splits the batch's rows over its ranks, from draws made for the whole
+batch (xT, a and every step's noise; ``parallel/batch.py``), and gathers
+the result on every rank, so it equals the one-process trajectory. A
+batch that does not divide over the group warns and runs whole, as the
+JAX processes' ``_shard_for_mesh`` does. Sharded sampling is a library
+API: the command line's eval modes run in one process
+(``parallel.multihost.require_single_process``) and pass no group.
 """
 
 from __future__ import annotations
@@ -62,10 +71,44 @@ from infodiffusion_tpu_torch.ops.cuda.latent_traj import (
     latent_trajectory,
     quantize_packed_weights,
 )
+from infodiffusion_tpu_torch.parallel.batch import (
+    BatchRows,
+    batch_scope,
+    draw_rows,
+)
 
 
 def _full_t(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return idx.expand(x.shape[0])
+
+
+def _noise(x: torch.Tensor, generator) -> torch.Tensor:
+    """A step's draw shaped like ``x`` (this rank's rows of the whole
+    batch's draw when sampling is split over a group)."""
+    return draw_rows(lambda n: torch.randn(
+        (n,) + tuple(x.shape[1:]), generator=generator, device=x.device,
+        dtype=x.dtype), x.shape[0])
+
+
+def _split_rows(group, batch: int) -> Optional[BatchRows]:
+    """This rank's rows of a ``batch``-row sampling batch over ``group``
+    (None: one rank, or a batch that does not divide, which warns)."""
+    import torch.distributed as dist
+
+    if group is None or dist.get_world_size(group) == 1:
+        return None
+    n = dist.get_world_size(group)
+    if batch % n:
+        warnings.warn(
+            f"sampling batch size {batch} does not divide the {n}-way data "
+            f"group; sampling the whole batch on every rank (pad or resize "
+            f"the batch to a multiple of {n} to split it)", stacklevel=3)
+        return None
+    return BatchRows(group, dist.get_rank(group), n, batch)
+
+
+def _rows_of(rows: Optional[BatchRows], t: Optional[torch.Tensor]):
+    return t if rows is None or t is None else t[rows.lo:rows.hi]
 
 
 def sample_loop(
@@ -86,8 +129,8 @@ def sample_loop(
     for i in range(sched.T):
         idx = idxs[i]
         eps = eps_fn(x, _full_t(x, idx), a)
-        noise = (noises[i] if noises is not None else torch.randn(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        noise = (noises[i] if noises is not None else _noise(
+            x, generator))
         if deterministic:
             x = ddim_step(sched, x, idx, eps, noise)
         else:
@@ -138,8 +181,8 @@ def two_phase_sample_loop(
             eps = eps_fn_uncond(x, t)
         else:
             eps = eps_fn_cond(x, t, a)
-        noise = (noises[n] if noises is not None else torch.randn(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype))
+        noise = (noises[n] if noises is not None else _noise(
+            x, generator))
         if deterministic:
             x = ddim_step(sched, x, idx, eps, noise)
         else:
@@ -179,8 +222,8 @@ def strided_ddim_loop(
         if eta == 0.0:
             noise = torch.zeros_like(x)
         else:
-            noise = (noises[i] if noises is not None else torch.randn(
-                x.shape, generator=generator, device=x.device, dtype=x.dtype))
+            noise = (noises[i] if noises is not None else _noise(
+                x, generator))
             noise = torch.where(t_prev < 0, torch.zeros_like(noise), noise)
         x = strided_ddim_step(sched, x, t, t_prev, eps, noise, eta=eta)
     return x
@@ -291,11 +334,14 @@ class DiffusionProcess:
     ``sampling`` / ``reverse_sampling`` call only, so the model is left
     without it (training and other processes over the same model never see
     it). The vanilla Diff calibrates without ``a`` (``a_dim=None``), as
-    the JAX process does. ``shape`` (C, H, W) overrides ``cfg.shape``."""
+    the JAX process does. ``shape`` (C, H, W) overrides ``cfg.shape``.
+    ``group`` splits ``sampling``'s rows over a data group (see the module
+    docstring)."""
 
     def __init__(self, cfg, model: torch.nn.Module,
-                 turbo: Optional[str] = None, shape=None):
+                 turbo: Optional[str] = None, shape=None, group=None):
         self.cfg = cfg
+        self.group = group
         self.model = model.eval()
         c, h, w = shape if shape is not None else cfg.shape
         self.data_shape = (h, w, c)
@@ -327,13 +373,19 @@ class DiffusionProcess:
         if a is None and self.is_conditional:
             a = torch.randn((xT.shape[0], self.cfg.a_dim),
                             generator=generator, device=self.device)
+        rows = _split_rows(self.group, xT.shape[0])
         q8.load_quant_state(self.model, self.quant)
         try:
-            if num_steps is not None:
-                return strided_ddim_loop(self._eps_fn(), self.sched, xT,
-                                         generator, a, num_steps=num_steps)
-            return sample_loop(self._eps_fn(), self.sched, xT, generator, a,
-                               deterministic=self.cfg.deterministic)
+            with batch_scope(rows):
+                xT, a = _rows_of(rows, xT), _rows_of(rows, a)
+                if num_steps is not None:
+                    x = strided_ddim_loop(self._eps_fn(), self.sched, xT,
+                                          generator, a, num_steps=num_steps)
+                else:
+                    x = sample_loop(self._eps_fn(), self.sched, xT,
+                                    generator, a,
+                                    deterministic=self.cfg.deterministic)
+            return x if rows is None else rows.gather(x)
         finally:
             q8.clear_quant_state(self.model)
 
@@ -364,11 +416,13 @@ class TwoPhaseDiffusionProcess:
     ``turbo='int8'`` calibrates both models here, ``model1`` with ``a`` and
     ``model2`` without, as the JAX process does, and keeps both quant
     states; each is installed on its model only while that model's phase
-    runs. ``shape`` (C, H, W) overrides ``cfg.shape``."""
+    runs. ``shape`` (C, H, W) overrides ``cfg.shape``; ``group`` as in
+    ``DiffusionProcess``."""
 
     def __init__(self, cfg, model1: torch.nn.Module, model2: torch.nn.Module,
-                 turbo: Optional[str] = None, shape=None):
+                 turbo: Optional[str] = None, shape=None, group=None):
         self.cfg = cfg
+        self.group = group
         self.model1 = model1.eval()
         self.model2 = model2.eval()
         c, h, w = shape if shape is not None else cfg.shape
@@ -396,14 +450,17 @@ class TwoPhaseDiffusionProcess:
         if a is None:
             a = torch.randn((xT.shape[0], self.cfg.a_dim),
                             generator=generator, device=self.device)
-        with self._installed() as quant:
-            return two_phase_sample_loop(
+        rows = _split_rows(self.group, xT.shape[0])
+        with self._installed() as quant, batch_scope(rows):
+            x = two_phase_sample_loop(
                 quant.wrap(self.model1, self.model1),
                 quant.wrap(self.model2, lambda x, t: self.model2(x, t)),
-                self.sched, xT, generator, a, self.cfg.split_step,
-                deterministic=self.cfg.deterministic,
+                self.sched, _rows_of(rows, xT), generator, _rows_of(rows, a),
+                self.cfg.split_step, deterministic=self.cfg.deterministic,
                 reference_quirk=self.cfg.two_phase_reference_quirk,
-                noises=noises)
+                noises=noises if noises is None or rows is None
+                else noises[:, rows.lo:rows.hi])
+        return x if rows is None else rows.gather(x)
 
     @torch.no_grad()
     def reverse_sampling(self, x0: torch.Tensor, a=None,

@@ -15,6 +15,12 @@ Random draws: ``t``, ``eps``, ``reparam_eps`` and ``prior_samples`` can be
 injected (keyword-only, as in the JAX package); what is not injected is
 drawn from the explicit generators in ``Rngs`` (the Flax rng streams
 'noise', 'reparam' and 'dropout'), never from the global RNG.
+
+Under data parallelism (``parallel/batch.py``'s ``batch_scope``) each rank
+holds its rows of the global batch: the draws are made for the global
+batch and the rank keeps its rows, the batch means and sums are global,
+and the MMD gathers its target latents, so every rank computes the
+one-process loss.
 """
 
 from __future__ import annotations
@@ -37,6 +43,12 @@ from infodiffusion_tpu_torch.nn.blocks import dropout
 from infodiffusion_tpu_torch.nn.initializers import lecun_normal_
 from infodiffusion_tpu_torch.nn.layers import Dense
 from infodiffusion_tpu_torch.ops.mmd import compute_mmd
+from infodiffusion_tpu_torch.parallel.batch import (
+    batch_mean,
+    batch_sum,
+    draw_rows,
+    gather_batch,
+)
 from infodiffusion_tpu_torch.utils import gaussian_mixture, swiss_roll
 
 
@@ -78,6 +90,26 @@ def _draw_prior(generator, prior: str, like: torch.Tensor) -> torch.Tensor:
     raise ValueError(prior)
 
 
+def _draw_t(T: int, x: torch.Tensor, rngs) -> torch.Tensor:
+    gen = _stream(rngs, "noise")
+    return draw_rows(lambda n: torch.randint(0, T, (n,), generator=gen,
+                                             device=x.device), x.shape[0])
+
+
+def _draw_eps(x: torch.Tensor, rngs) -> torch.Tensor:
+    gen = _stream(rngs, "noise")
+    return draw_rows(lambda n: torch.randn(
+        (n,) + tuple(x.shape[1:]), generator=gen, device=x.device,
+        dtype=x.dtype), x.shape[0])
+
+
+def _draw_reparam(encoder, x: torch.Tensor, rngs) -> torch.Tensor:
+    gen = _stream(rngs, "reparam")
+    return draw_rows(lambda n: torch.randn(
+        (n, encoder.fc_mu.weight.shape[0]), generator=gen, device=x.device,
+        dtype=encoder.fc_mu.dtype), x.shape[0])
+
+
 def _kld_sum(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     """KLD summed over the batch (the InfoDiff convention)."""
     return (-0.5 * (1.0 + log_var - mu.square() - log_var.exp()).sum(1)).sum()
@@ -85,7 +117,8 @@ def _kld_sum(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
 
 def _kld_mean(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
     """KLD meaned over the batch (the VAE convention)."""
-    return (-0.5 * (1.0 + log_var - mu.square() - log_var.exp()).sum(1)).mean()
+    return batch_mean(-0.5 * (1.0 + log_var - mu.square() - log_var.exp())
+                      .sum(1))
 
 
 def _capacity(C_max: float, epochs: int, curr_epoch) -> torch.Tensor:
@@ -164,18 +197,12 @@ class InfoDiff(_Scheduled):
                       eps=None, reparam_eps=None, rngs: Optional[Rngs] = None):
         """Random-t re-noising + encoding of the clean x. Returns
         (out, eps, a, mu, log_var)."""
-        B = x.shape[0]
         if t is None:
-            t = torch.randint(0, self.T, (B,), generator=_stream(rngs, "noise"),
-                              device=x.device)
+            t = _draw_t(self.T, x, rngs)
         if eps is None:
-            eps = torch.randn(x.shape, generator=_stream(rngs, "noise"),
-                              device=x.device, dtype=x.dtype)
+            eps = _draw_eps(x, rngs)
         if reparam_eps is None:
-            reparam_eps = torch.randn(
-                (B, self.encoder.fc_mu.weight.shape[0]),
-                generator=_stream(rngs, "reparam"), device=x.device,
-                dtype=self.encoder.fc_mu.dtype)
+            reparam_eps = _draw_reparam(self.encoder, x, rngs)
         drop_gen = None if deterministic else _stream(rngs, "dropout")
         x_tilde = q_sample(self.sched(x.device), x, t, eps)
         a, a_q, mu, log_var = self.encoder(
@@ -197,19 +224,19 @@ class InfoDiff(_Scheduled):
             reparam_eps=reparam_eps, rngs=rngs)
         f32 = torch.float32
         out32, eps32, x32 = out.to(f32), eps.to(f32), x.to(f32)
-        loss_denoise = (out32 - eps32).square().mean()
+        loss_denoise = batch_mean((out32 - eps32).square())
         # the recon term re-estimates x0 from the *clean* x with the t=0
         # schedule entries, a reference quirk kept as written
         s = self.sched(x.device)
         x0_est = torch.sqrt(1.0 / s.alphas[0]) * (
             x32 - s.betas[0] / torch.sqrt(1.0 - s.alpha_bars[0]) * out32)
-        loss_rec = (x0_est - x32).square().mean() / self.T
+        loss_rec = batch_mean((x0_est - x32).square()) / self.T
         loss = loss_denoise + loss_rec
         aux = {"denoise": loss_denoise, "recon": loss_rec}
         if self.mmd_weight != 0:
             # the MMD target is mu when KLD is on too, else the
             # deterministic a
-            target = mu if self.kld_weight != 0 else a
+            target = gather_batch(mu if self.kld_weight != 0 else a)
             if prior_samples is None:
                 prior_samples = _draw_prior(_stream(rngs, "noise"),
                                             self.prior, target)
@@ -217,7 +244,7 @@ class InfoDiff(_Scheduled):
             loss = loss + self.mmd_weight * loss_mmd
             aux["mmd"] = loss_mmd
         if self.kld_weight != 0:
-            kld = _kld_sum(mu.to(f32), log_var.to(f32))
+            kld = batch_sum(_kld_sum(mu.to(f32), log_var.to(f32)))
             if self.use_C:
                 C = _capacity(self.C_max, self.epochs, curr_epoch).to(kld)
                 loss = loss + self.kld_weight * (kld - C).abs()
@@ -256,8 +283,6 @@ class Diff(_Scheduled):
     def forward(self, x: torch.Tensor, t: torch.Tensor, *,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.is_latent:
-            return self.backbone(x, t)
         return self.backbone(x, t, deterministic=deterministic,
                              generator=generator)
 
@@ -266,15 +291,11 @@ class Diff(_Scheduled):
         """Random-t re-noising of x (image [B, H, W, C] or latent [B, d]);
         returns (out, eps)."""
         if t is None:
-            t = torch.randint(0, self.T, (x.shape[0],),
-                              generator=_stream(rngs, "noise"),
-                              device=x.device)
+            t = _draw_t(self.T, x, rngs)
         if eps is None:
-            eps = torch.randn(x.shape, generator=_stream(rngs, "noise"),
-                              device=x.device, dtype=x.dtype)
+            eps = _draw_eps(x, rngs)
         x_tilde = q_sample(self.sched(x.device), x, t, eps)
-        drop_gen = (None if deterministic or self.is_latent
-                    else _stream(rngs, "dropout"))
+        drop_gen = None if deterministic else _stream(rngs, "dropout")
         return self(x_tilde, t, deterministic=deterministic,
                     generator=drop_gen), eps
 
@@ -284,7 +305,7 @@ class Diff(_Scheduled):
         out, eps = self.train_forward(x, deterministic=deterministic, t=t,
                                       eps=eps, rngs=rngs)
         f32 = torch.float32
-        loss = (out.to(f32) - eps.to(f32)).square().mean()
+        loss = batch_mean((out.to(f32) - eps.to(f32)).square())
         return loss, {"denoise": loss}
 
 
@@ -323,10 +344,7 @@ class VAE(nn.Module):
         """Returns (reconstruction, a_q, mu, log_var); decodes ``a`` when no
         regularizer is on, else ``a_q``."""
         if reparam_eps is None:
-            reparam_eps = torch.randn(
-                (x.shape[0], self.encoder.fc_mu.weight.shape[0]),
-                generator=_stream(rngs, "reparam"), device=x.device,
-                dtype=self.encoder.fc_mu.dtype)
+            reparam_eps = _draw_reparam(self.encoder, x, rngs)
         drop_gen = None if deterministic else _stream(rngs, "dropout")
         a, a_q, mu, log_var = self.encoder(
             x, deterministic=deterministic, reparam_eps=reparam_eps,
@@ -343,14 +361,15 @@ class VAE(nn.Module):
         rec, a_q, mu, log_var = self(x, deterministic=deterministic,
                                      reparam_eps=reparam_eps, rngs=rngs)
         f32 = torch.float32
-        loss = (rec.to(f32) - x.to(f32)).square().mean()
+        loss = batch_mean((rec.to(f32) - x.to(f32)).square())
         aux = {"recon": loss}
         if self.mmd_weight != 0:
+            target = gather_batch(a_q)
             if prior_samples is None:
                 prior_samples = torch.randn(
-                    a_q.shape, generator=_stream(rngs, "noise"),
+                    target.shape, generator=_stream(rngs, "noise"),
                     device=a_q.device, dtype=f32)
-            loss_mmd = compute_mmd(prior_samples.to(f32), a_q.to(f32))
+            loss_mmd = compute_mmd(prior_samples.to(f32), target.to(f32))
             loss = loss + self.mmd_weight * loss_mmd
             aux["mmd"] = loss_mmd
         elif self.kld_weight != 0:

@@ -51,6 +51,7 @@ from infodiffusion_tpu_torch.ops.cuda.shortcut_fused import (
     use_fused_shortcut,
 )
 from infodiffusion_tpu_torch.ops.norm import adagn, group_norm_affine
+from infodiffusion_tpu_torch.parallel.batch import draw_rows
 
 _GROUPS = 32
 DROPOUT = 0.1  # the rate of every ResBlock's dropout
@@ -65,9 +66,32 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if generator is None:
         raise ValueError("dropout with deterministic=False needs an explicit "
                          "torch.Generator")
+    # the uniforms fill x's memory order (channels_last kept); under data
+    # parallelism they are drawn for the global batch and sliced
+    # (parallel/batch.py)
+    return apply_dropout(x, rate, draw_rows(
+        lambda n: _uniforms_like(x, n, generator), x.shape[0]))
+
+
+def _uniforms_like(x: torch.Tensor, n: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    """f32 uniforms shaped like ``x`` with ``n`` rows, in x's memory
+    format."""
+    if n == x.shape[0]:
+        u = torch.empty_like(x, dtype=torch.float32)
+    else:
+        fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+               and x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        u = torch.empty((n,) + tuple(x.shape[1:]), dtype=torch.float32,
+                        device=x.device, memory_format=fmt)
+    return u.uniform_(generator=generator)
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  u: torch.Tensor) -> torch.Tensor:
+    """Keep where ``u < 1 - rate``, kept values scaled by 1/(1 - rate)."""
     keep = 1.0 - rate
-    # empty_like keeps x's memory format (channels_last)
-    u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -117,7 +141,11 @@ class Conv3(nn.Module):
     output channel at every call, the input at its calibrated scale (before
     the repeat: |x| is repeat-invariant), ``int8_conv``, then
     ``f32(y) * (sx * sw) + bias`` in ``dtype``. ``quantize=False`` pins a
-    conv (the image head and tail) to ``dtype``."""
+    conv (the image head and tail) to ``dtype``. Under tensor parallelism
+    ``tp`` (``parallel/tp.py``) computes the model-dtype conv on this
+    rank's output channels."""
+
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int,
                  dtype: torch.dtype = torch.float32, stride: int = 1,
@@ -159,6 +187,8 @@ class Conv3(nn.Module):
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         """The model-dtype conv."""
+        if self.tp is not None:
+            return self.tp.conv(self, x)
         x = x.to(self.dtype)
         if self.repeat > 1:
             x = F.interpolate(x, scale_factor=self.repeat, mode="nearest")
@@ -230,7 +260,8 @@ class ShortcutDense(Dense):
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
                 pieces=None) -> torch.Tensor:
         plist = list(pieces) if pieces is not None else [x]
-        if (use_fused_shortcut(residual) and fused_shortcut_supported(
+        if (self.tp is None and use_fused_shortcut(residual)
+                and fused_shortcut_supported(
                 [p.shape[1] for p in plist], residual.shape[1])):
             return _nchw(fused_shortcut_add(
                 _nhwc(residual), [_nhwc(p) for p in plist], self.weight,

@@ -19,7 +19,11 @@ def xavier_(w: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """``nn.Dense``: ``x @ W + b`` over the last axis, computed in ``dtype``."""
+    """``nn.Dense``: ``x @ W + b`` over the last axis, computed in ``dtype``.
+    Under tensor parallelism ``tp`` (``parallel/tp.py``) computes this
+    rank's output features and gathers the rest."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -31,6 +35,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.dense(self, x)
         return F.linear(
             x.to(self.dtype), self.weight.to(self.dtype),
             self.bias.to(self.dtype),

@@ -13,7 +13,10 @@ tensor takes the same route through the plain versions
 (``attention_reference`` for K2 and K3a, which share a contract, and
 ``flash_attention_online_reference`` for K3c) and the explicit plain
 backward. Nothing is saved for backward when no input needs a gradient.
-The JAX package's ring (sequence-parallel) route is not ported.
+Before all of that, under ``--sp`` (``parallel/sp.py``), ``sp_route``
+sends an attention of at least ``INFODIFF_SP_MIN_TOKENS`` tokens to ring
+attention over the ``seq`` group (``parallel/ring_attention.py``), as the
+JAX op does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from infodiffusion_tpu_torch.ops.cuda.flash_attention import (
     flash_route,
     forward_for,
 )
+from infodiffusion_tpu_torch.parallel.ring_attention import ring_attention
+from infodiffusion_tpu_torch.parallel.sp import sp_route
 
 __all__ = ["bwd_route", "flash_min_tokens", "flash_route",
            "single_head_attention"]
@@ -53,4 +58,7 @@ class _Attention(torch.autograd.Function):
 def single_head_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """q, k, v: [B, N, C] -> [B, N, C]."""
+    group = sp_route(q.shape[1])
+    if group is not None:
+        return ring_attention(q, k, v, group)
     return _Attention.apply(q, k, v)

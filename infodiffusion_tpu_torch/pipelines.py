@@ -39,10 +39,13 @@ class InfoDiffusionPipeline:
     random draws come from the pipeline's own generator (seeded with
     ``seed``) unless one is given."""
 
-    def __init__(self, cfg, model: torch.nn.Module, seed: int = 0):
+    def __init__(self, cfg, model: torch.nn.Module, seed: int = 0,
+                 group=None):
+        """``group``: a data process group to split ``generate``'s rows
+        over (``DiffusionProcess``)."""
         self.cfg = cfg
         self.model = model
-        self.process = DiffusionProcess(cfg, model)
+        self.process = DiffusionProcess(cfg, model, group=group)
         self.generator = torch.Generator(device=self.process.device)
         self.generator.manual_seed(seed)
 

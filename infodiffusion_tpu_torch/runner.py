@@ -16,10 +16,23 @@ the reference's shell workflows translate one to one through
   ``attr_classification``: :func:`evaluate`;
 - ``save_original_img``: :func:`save_original_img`.
 
-Everything runs on one device: the card, or the CPU when
+A process runs on one device: the card, or the CPU when
 ``INFODIFF_FORCE_CPU=1`` (or an explicit ``device``); with neither a card
 nor that switch a run raises. Every random draw of a mode comes from one
 ``torch.Generator`` on that device, seeded with ``--r_seed``.
+
+Training runs across processes under ``torchrun`` (or ``--multihost``),
+one rank a device, with the JAX runner's flags and rules
+(:func:`parallel_plan`): ``--mesh_devices`` / ``--fsdp`` / ``--tp`` lay the
+state out over a ``(data, model)`` mesh (``parallel/layout.py``), each rank
+loading its rows of the global batch; ``--pp`` pipelines
+``train_latent_ddim`` (``parallel/pp.py``, with data replicas where the
+world is a multiple of the stages); ``--sp`` splits large attentions over
+the ranks (``parallel/sp.py``). ``--pp`` and ``--sp`` own the devices and
+drop the data mesh, with the JAX runner's warning. Rank 0 alone writes the
+metrics, TensorBoard and checkpoints; the preemption decision is agreed
+every ``INFODIFF_PREEMPT_SYNC_EVERY`` steps. The eval modes run in one
+process (``require_single_process``), as the JAX runner's do on one host.
 
 Where the port differs from the JAX runner: a run preempted mid-epoch
 resumes at the batch after the last one it trained on (the JAX runner
@@ -33,10 +46,12 @@ scatter; ``attr_classification``'s probe starts from the port's own draws
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 import os
 import signal
 import threading
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -93,19 +108,162 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def check_single_device(cfg: Config) -> None:
-    """Refuse the flags that need more than one device: the port has no
-    parallel layouts yet."""
-    wanted = [flag for flag, on in (
-        (f"--mesh_devices {cfg.mesh_devices}",
-         cfg.mesh_devices is not None and cfg.mesh_devices > 1),
-        ("--multihost", cfg.multihost), ("--fsdp", cfg.fsdp),
-        (f"--tp {cfg.tp}", cfg.tp > 1), (f"--pp {cfg.pp}", cfg.pp > 1),
-        (f"--sp {cfg.sp}", cfg.sp > 1)) if on]
-    if wanted:
-        raise NotImplementedError(
-            f"{', '.join(wanted)}: the port runs on one device; its "
-            f"parallel layouts are ROADMAP.md Queue 1 item 7 (parallelism)")
+# ---------------------------------------------------------------------------
+# the parallel layouts
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ParallelPlan:
+    """How a training run lies over the ranks: the ``(data, model)`` mesh
+    of the layouts (None under ``--pp`` / ``--sp`` and in one process),
+    or the pipeline's mesh and microbatches, and the rows of each global
+    batch this rank loads (None: all)."""
+
+    mesh: object = None
+    pp_mesh: object = None
+    microbatches: int = 0
+    rows: Optional[np.ndarray] = None
+
+    def describe(self) -> str:
+        if self.pp_mesh is not None:
+            from infodiffusion_tpu_torch.parallel.mesh import (
+                DATA_AXIS,
+                STAGE_AXIS,
+                axis_size,
+            )
+
+            dp = axis_size(self.pp_mesh, DATA_AXIS)
+            return (f"GPipe latent training: "
+                    f"{axis_size(self.pp_mesh, STAGE_AXIS)} stages x "
+                    f"{self.microbatches} microbatches"
+                    + (f" x {dp} data-parallel replicas" if dp > 1 else ""))
+        if self.mesh is None:
+            return "one device a process, the whole batch on each"
+        return f"mesh {dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}"
+
+
+def _configure_sp(cfg: Config) -> None:
+    """Arm (or clear) the sequence-parallel attention context (``--sp N``:
+    ring attention over a ``seq`` group of N ranks once an attention has
+    ``INFODIFF_SP_MIN_TOKENS`` tokens), with the JAX runner's two
+    warnings."""
+    from infodiffusion_tpu_torch.parallel.sp import configure_sp
+
+    if cfg.sp <= 1:
+        configure_sp(None)
+        return
+    from infodiffusion_tpu_torch.parallel.ring_attention import make_seq_mesh
+
+    configure_sp(make_seq_mesh(cfg.sp))
+    min_tokens = int(os.environ.get("INFODIFF_SP_MIN_TOKENS", "1024"))
+    _say(f"[sp] ring attention armed: {cfg.sp}-way 'seq' group, >= "
+         f"{min_tokens} tokens")
+    levels = (tuple(int(i) for i in cfg.attn.split(",")) if cfg.attn
+              else (2,))
+    max_tokens = max((cfg.input_size // (2 ** lvl)) ** 2 for lvl in levels)
+    if max_tokens < min_tokens:
+        warnings.warn(
+            f"--sp {cfg.sp} will never engage: the largest attention grid "
+            f"for this config is {max_tokens} tokens (input_size "
+            f"{cfg.input_size}, attn levels {levels}), below the "
+            f"{min_tokens}-token threshold (INFODIFF_SP_MIN_TOKENS) — yet "
+            "--sp still disables data-sharded batches. Drop the flag (or "
+            "lower the threshold) unless you mean to force ring attention.")
+        return
+    profit_tokens = int(os.environ.get("INFODIFF_SP_PROFIT_TOKENS", "4096"))
+    per_device = max_tokens // cfg.sp
+    if per_device < profit_tokens:
+        warnings.warn(
+            f"--sp {cfg.sp} engages but leaves only {per_device} tokens per "
+            f"device (largest grid {max_tokens}); below ~{profit_tokens} "
+            "tokens/device (INFODIFF_SP_PROFIT_TOKENS) each ring hop's "
+            "transfer is not hidden by its block's compute and SP runs "
+            "latency-bound — on top of the data-parallel width it already "
+            "takes. Prefer data parallelism unless attention memory forces "
+            "the split.")
+
+
+def parallel_plan(cfg: Config, latent: bool = False) -> ParallelPlan:
+    """The JAX runner's rules for a training run: ``--pp`` only for
+    ``train_latent_ddim``; ``--pp`` / ``--sp`` own the devices (``--fsdp``,
+    ``--tp`` and data-sharded batches are dropped with a warning);
+    otherwise, once a process group is up, the ``(data, model)`` mesh of
+    ``--mesh_devices`` ranks with ``--tp`` over ``model``. In one process
+    without a group every flag that needs devices a process does not have
+    is a no-op, as on the JAX runner's single device; ``--sp`` > 1 asks for
+    ranks and raises there, as JAX's does without the devices."""
+    import torch.distributed as dist
+
+    from infodiffusion_tpu_torch.parallel import multihost
+    from infodiffusion_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        axis_index,
+        axis_size,
+        make_mesh,
+    )
+
+    use_pp = cfg.pp > 1
+    if use_pp and not latent:
+        raise ValueError(
+            "--pp pipelines the LatentUNet middle stack and is only "
+            "supported for --mode train_latent_ddim (the image UNet's skip "
+            "connections couple its stages; parallel/pp.py)")
+    _configure_sp(cfg)
+    world = multihost.world_size()
+    plan = ParallelPlan()
+    if use_pp or cfg.sp > 1:
+        dropped = [flag for flag, on in (
+            ("--fsdp", cfg.fsdp), (f"--tp {cfg.tp}", cfg.tp > 1),
+            ("data-sharded batches", world > 1 and not use_pp)) if on]
+        if dropped:
+            warnings.warn(
+                f"--{'pp' if use_pp else 'sp'} owns the device mesh: "
+                + ", ".join(dropped) + " disabled for this run (they need "
+                "the 'data'/'model' mesh, which --pp/--sp replaces)")
+    if use_pp:
+        from infodiffusion_tpu_torch.parallel.pp import (
+            make_dp_stage_mesh,
+            microbatch_count,
+        )
+
+        if world % cfg.pp:
+            raise ValueError(f"--pp {cfg.pp} must divide the world size "
+                             f"{world}: the port runs one process a device")
+        dp = 1 if os.environ.get("INFODIFF_PP_NO_DP") else world // cfg.pp
+        if dp * cfg.pp != world:
+            raise ValueError(f"INFODIFF_PP_NO_DP=1 needs the world size "
+                             f"{world} to equal --pp {cfg.pp}")
+        plan.microbatches = microbatch_count(cfg.pp)
+        if cfg.batch_size % plan.microbatches:
+            raise ValueError(
+                f"--batch_size {cfg.batch_size} must be divisible by the "
+                f"pipeline microbatch count {plan.microbatches} (--pp "
+                f"{cfg.pp}; override with INFODIFF_PP_MICROBATCHES)")
+        if (cfg.batch_size // plan.microbatches) % dp:
+            raise ValueError(
+                f"microbatch size {cfg.batch_size // plan.microbatches} does "
+                f"not divide over the {dp} data-parallel pipeline replicas "
+                f"(world {world} / --pp {cfg.pp}); the port has no idle "
+                f"ranks to fall back to the 1-D stage layout with")
+        plan.pp_mesh = make_dp_stage_mesh(dp, cfg.pp)
+        mesh = plan.pp_mesh
+    elif cfg.sp > 1 or not dist.is_initialized():
+        return plan
+    else:
+        mesh = plan.mesh = make_mesh(cfg.mesh_devices, model_parallel=cfg.tp)
+    plan.rows = multihost.local_row_indices(
+        axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS),
+        cfg.batch_size)
+    return plan
+
+
+def _say(msg: str) -> None:
+    """Print on rank 0 only."""
+    from infodiffusion_tpu_torch.parallel import multihost
+
+    if multihost.is_main_process():
+        print(msg)
 
 
 # ---------------------------------------------------------------------------
@@ -169,13 +327,14 @@ def save_images(cfg: Config, sample, sample_num: int = 0, epoch: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _loader(cfg: Config, device, with_attrs=False, shuffle=None):
+def _loader(cfg: Config, device, with_attrs=False, shuffle=None,
+            rows=None):
     flip, shuf = dataset_flags(cfg.dataset)
     if shuffle is not None:
         shuf = shuffle
     return DataLoader(get_dataset(cfg), cfg.batch_size, device=device,
                       shuffle=shuf, flip=flip, seed=cfg.r_seed,
-                      with_attrs=with_attrs)
+                      with_attrs=with_attrs, rows=rows)
 
 
 # calibrated encoder quant states under --turbo, one per (model, tier):
@@ -265,39 +424,66 @@ def request_preempt(signum=None, frame=None):
 
 def train(cfg: Config, latent: bool = False, device=None):
     """Train the image model (or, with ``latent``, the latent prior) for
-    ``cfg.epochs`` epochs; returns the train state."""
-    check_single_device(cfg)
+    ``cfg.epochs`` epochs; returns the train state (this rank's pieces of
+    it under a layout)."""
+    from infodiffusion_tpu_torch.parallel import multihost
+    from infodiffusion_tpu_torch.parallel.layout import Layout, describe
+    from infodiffusion_tpu_torch.parallel.mesh import replicate
+
+    multihost.maybe_initialize(cfg.multihost)
     seed = seed_everything(cfg.r_seed)
     cfg = cfg.with_dataset_config()
+    plan = parallel_plan(cfg, latent)
     device = resolve_device(device)
-    print(dict(vars(cfg)))
+    _say(str(dict(vars(cfg))))
     if latent:
         loader = DataLoader(LatentDataset(latent_npz_path(cfg)),
                             cfg.batch_size, device=device, shuffle=True,
-                            seed=cfg.r_seed)
+                            seed=cfg.r_seed, rows=plan.rows)
         model = build_model(cfg, latent=True, device=device)
         log_dir = os.path.join(cfg.log_folder,
                                generate_exp_string(cfg) + "_latent")
     else:
-        loader = _loader(cfg, device)
+        loader = _loader(cfg, device, rows=plan.rows)
         model = build_model(cfg, device=device)
         log_dir = os.path.join(cfg.log_folder, generate_exp_string(cfg))
-    writer = MetricsWriter(log_dir, use_tb=cfg.tb_logger)
+    # one writer for the run: ranks on a shared filesystem must not write
+    # the same metrics and TensorBoard files
+    writer = MetricsWriter(log_dir, use_tb=cfg.tb_logger,
+                           enabled=multihost.is_main_process())
     tx = make_optimizer(cfg.learning_rate, cfg.epochs, max(len(loader), 1))
+    replicate(model.parameters())
     state = create_train_state(model.train(), seed, tx,
                                ema=cfg.ema_decay > 0)
-    step_fn = make_train_step(model, tx, ema_decay=cfg.ema_decay)
 
     ckpt_root = checkpoint_root(cfg, latent=latent)
     start = (0, 0)
     if cfg.resume:
         last = latest_checkpoint_epoch(ckpt_root)
         if last is not None:
+            # restored whole on every rank, then laid out below
             state, start = restore_checkpoint(ckpt_root, last, state)
             # the resumed run's epoch k sees the uninterrupted run's order
             # and flips; the step draws follow (seed, step)
             loader.fast_forward(*start)
-            print(f"Resumed from epoch {last} (step {state.step})")
+            _say(f"Resumed from epoch {last} (step {state.step})")
+    layout = None
+    if plan.pp_mesh is not None:
+        from infodiffusion_tpu_torch.parallel.pp import make_pp_train_step
+
+        step_fn = make_pp_train_step(model, tx, plan.pp_mesh,
+                                     plan.microbatches,
+                                     ema_decay=cfg.ema_decay)
+    elif plan.mesh is not None:
+        layout = Layout.for_model(model, plan.mesh, fsdp=cfg.fsdp)
+        state = layout.shard_state(model, state)
+        step_fn = make_train_step(model, tx, ema_decay=cfg.ema_decay,
+                                  layout=layout)
+    else:
+        step_fn = make_train_step(model, tx, ema_decay=cfg.ema_decay)
+    if multihost.world_size() > 1 or plan.mesh is not None:
+        _say(f"[parallel] {multihost.world_size()} ranks: "
+             f"{plan.describe()}; {describe(layout)}")
 
     _PREEMPTED.clear()
     prev_handler = None
@@ -305,7 +491,7 @@ def train(cfg: Config, latent: bool = False, device=None):
         prev_handler = signal.signal(signal.SIGTERM, request_preempt)
     try:
         return _train_loop(cfg, loader, state, step_fn, start, writer,
-                           ckpt_root, device)
+                           ckpt_root, device, layout)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -364,8 +550,29 @@ def _fetch(metrics: dict) -> dict:
     return dict(zip(metrics, vals))
 
 
+# steps between the ranks' preemption agreements (a collective)
+_PREEMPT_SYNC_EVERY = int(os.environ.get("INFODIFF_PREEMPT_SYNC_EVERY", "10"))
+
+
+def _preempt_now(host_steps: int) -> bool:
+    """The preemption decision at this step boundary: the local flag in one
+    process; across ranks, any rank's flag, agreed on at the same step
+    boundaries (every ``_PREEMPT_SYNC_EVERY`` steps), so no rank leaves the
+    loop while the others enter the next gradient all-reduce."""
+    from infodiffusion_tpu_torch.parallel import multihost
+
+    if multihost.world_size() == 1:
+        return _PREEMPTED.is_set()
+    if host_steps % _PREEMPT_SYNC_EVERY:
+        return False
+    return multihost.agree_on_preemption(_PREEMPTED.is_set())
+
+
 def _train_loop(cfg, loader, state, step_fn, start, writer, ckpt_root,
-                device):
+                device, layout=None):
+    from infodiffusion_tpu_torch.parallel import multihost
+
+    main = multihost.is_main_process()
     losses = AverageMeter("Loss", ":.4f")
     progress = ProgressMeter(cfg.epochs, [losses], prefix="Epoch ")
     log_every = int(os.environ.get("INFODIFF_LOG_EVERY", "50"))
@@ -386,13 +593,14 @@ def _train_loop(cfg, loader, state, step_fn, start, writer, ckpt_root,
                 host_steps += 1
                 if preempt_after and host_steps >= preempt_after:
                     request_preempt()
-                if _PREEMPTED.is_set():
+                if _preempt_now(host_steps):
                     wait_for_saves()  # any background write first
                     path = save_checkpoint(ckpt_root, curr_epoch, state,
-                                           position=(curr_epoch, i + 1))
-                    print(f"Preempted at step {host_steps} of epoch "
-                          f"{curr_epoch}: saved full train state to {path}; "
-                          f"continue with --resume")
+                                           position=(curr_epoch, i + 1),
+                                           layout=layout)
+                    _say(f"Preempted at step {host_steps} of epoch "
+                         f"{curr_epoch}: saved full train state to {path}; "
+                         f"continue with --resume")
                     writer.close()
                     return state
                 # metrics only every log_every steps: a per-step fetch
@@ -411,14 +619,16 @@ def _train_loop(cfg, loader, state, step_fn, start, writer, ckpt_root,
                 total += _fetch(last_metrics)["loss"]
                 count += 1
             losses.update(total / max(count, 1))
-            progress.display(curr_epoch)
-            print()
+            if main:
+                progress.display(curr_epoch)
+                print()
             writer.flush()
             if (curr_epoch + 1) % cfg.save_epochs == 0:
                 path = save_checkpoint(
                     ckpt_root, curr_epoch + 1, state,
-                    async_save=cfg.async_ckpt, keep=cfg.keep_checkpoints)
-                print(f"Saved checkpoint to {path}")
+                    async_save=cfg.async_ckpt, keep=cfg.keep_checkpoints,
+                    layout=layout)
+                _say(f"Saved checkpoint to {path}")
         wait_for_saves()
     finally:
         profile.stop()
@@ -453,8 +663,14 @@ def _second_model(cfg: Config, device):
 
 
 def evaluate(cfg: Config, device=None):
-    """Run the eval mode ``cfg.mode`` on the checkpoint at ``--epochs``."""
-    check_single_device(cfg)
+    """Run the eval mode ``cfg.mode`` on the checkpoint at ``--epochs``
+    (one process)."""
+    from infodiffusion_tpu_torch.parallel.multihost import (
+        require_single_process,
+    )
+
+    require_single_process(f"--mode {cfg.mode}")
+    _configure_sp(cfg)
     seed = seed_everything(cfg.r_seed)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -783,7 +999,11 @@ def _mode_attr_classification(cfg, model, device):
 def save_original_img(cfg: Config, device=None):
     """The dataset as [0, 1]-scaled PNGs, one grid a batch
     (``./{dataset}_imgs/{i:06d}.png``)."""
-    check_single_device(cfg)
+    from infodiffusion_tpu_torch.parallel.multihost import (
+        require_single_process,
+    )
+
+    require_single_process("--mode save_original_img")
     cfg = cfg.with_dataset_config()
     device = resolve_device(device)
     out = f"./{cfg.dataset}_imgs/"

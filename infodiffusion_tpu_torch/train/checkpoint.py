@@ -16,6 +16,13 @@ reading it needs jax.
 ``async_save`` copies the state to host memory at once, so later steps
 cannot change what is saved, and writes it on one background thread;
 retention for such a save waits until it is on disk (``wait_for_saves``).
+
+Across ranks, ``save_checkpoint`` is called by every rank: a state laid
+out by ``parallel/layout.py`` is gathered whole first (``layout=``), rank 0
+alone writes the one-device format, synchronously, and every rank waits
+for it at a barrier. A checkpoint written by N ranks therefore resumes in
+one process and the other way round (the runner restores whole, then lays
+the state out).
 """
 
 from __future__ import annotations
@@ -123,15 +130,28 @@ def _write(path: str, payload: dict) -> None:
 
 def save_checkpoint(root: str, epoch: int, state: TrainState, *,
                     async_save: bool = False, keep: Optional[int] = None,
-                    position=None) -> str:
+                    position=None, layout=None) -> str:
     """Write the full train state to ``root/model-{epoch}``.
 
     ``position`` is the loader's (epoch, batch) to resume at; default
     (epoch, 0), an epoch boundary. ``async_save`` writes on the background
     thread (at most one save in flight); ``keep`` deletes all but the
-    newest ``keep`` epochs once the save is on disk."""
+    newest ``keep`` epochs once the save is on disk. In a run of several
+    ranks every rank calls this; ``layout`` gathers a laid-out state whole,
+    and only rank 0 writes (see the module docstring)."""
     global _writer, _pending_retention
+    from infodiffusion_tpu_torch.parallel import multihost
+
     path = _path(root, epoch)
+    if layout is not None:
+        state = layout.whole_state(state)
+    if multihost.world_size() > 1:
+        if multihost.is_main_process():
+            _write(path, _payload(state, position or (epoch, 0)))
+            if keep is not None:
+                _apply_retention(root, keep, current=epoch)
+        multihost.barrier()
+        return path
     payload = _payload(state, position or (epoch, 0))
     if async_save:
         wait_for_saves()  # the previous save is on disk now

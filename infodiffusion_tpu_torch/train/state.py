@@ -68,13 +68,16 @@ class ClipAdamW:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
-               grads: List[torch.Tensor], state: AdamWState) -> torch.Tensor:
+               grads: List[torch.Tensor], state: AdamWState,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Clip ``grads`` (one per parameter, in ``params`` order), apply
         one AdamW step to ``params`` in place, and return the pre-clip
-        global norm."""
+        global norm. ``norm`` is that norm when the caller computed it (the
+        parameters are split over ranks: ``parallel/layout.py``)."""
         p = list(params.values())
         g = [x.to(torch.float32) for x in grads]
-        norm = global_norm(g)
+        if norm is None:
+            norm = global_norm(g)
         # optax: t if norm < max_norm else (t / norm) * max_norm
         clipped = norm >= self.clip_norm
         g = torch._foreach_div(g, torch.where(clipped, norm, 1.0))

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from infodiffusion_tpu_torch.models.wrappers import Rngs
+from infodiffusion_tpu_torch.parallel.batch import batch_scope
 from infodiffusion_tpu_torch.train.state import ClipAdamW, TrainState
 
 
@@ -43,17 +44,36 @@ def loss_and_grads(model, batch: torch.Tensor, curr_epoch=0,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
-def make_train_step(model, tx: ClipAdamW,
-                    ema_decay: float = 0.0) -> Callable:
+def make_train_step(model, tx: ClipAdamW, ema_decay: float = 0.0,
+                    layout=None) -> Callable:
     """Returns ``step_fn(state, batch, curr_epoch) -> (state, metrics)``;
     metrics hold ``loss``, ``grad_norm`` (the global norm before the clip)
-    and the loss's aux terms, as device tensors (no host sync)."""
+    and the loss's aux terms, as device tensors (no host sync).
+
+    With a ``layout`` (``parallel/layout.py``) the state is this rank's
+    pieces and ``batch`` its rows of the global batch: the loss is the
+    global batch's, the gradient shares are summed over the data group and
+    the norm is the whole gradient's, so the N-rank step repeats the
+    one-process step."""
 
     def step_fn(state: TrainState, batch: torch.Tensor, curr_epoch=0):
         rngs = step_rngs(state.seed, state.step, batch.device)
-        loss, aux, grads = loss_and_grads(model, batch, curr_epoch,
-                                          deterministic=False, rngs=rngs)
-        grad_norm = tx.update(state.params, grads, state.opt_state)
+        if layout is None:
+            loss, aux, grads = loss_and_grads(model, batch, curr_epoch,
+                                              deterministic=False, rngs=rngs)
+            grad_norm = tx.update(state.params, grads, state.opt_state)
+        else:
+            layout.unshard(state)
+            try:
+                with batch_scope(layout.rows(batch.shape[0])):
+                    loss, aux, grads = loss_and_grads(
+                        model, batch, curr_epoch, deterministic=False,
+                        rngs=rngs)
+            finally:
+                layout.reshard(state)
+            grads = layout.reduce_grads(state, grads)
+            grad_norm = tx.update(state.params, grads, state.opt_state,
+                                  norm=layout.global_norm(state, grads))
         del grads
         if ema_decay > 0.0 and state.ema_params is not None:
             update_ema(state.ema_params, state.params, ema_decay)

@@ -93,19 +93,39 @@ def test_scripts_parse_to_the_same_config():
         assert got == want, (name, argv)
 
 
+# in one process with no process group, what the JAX runner does on one
+# device: these raise (no group to join, --pp outside train_latent_ddim,
+# a 'seq' group wider than the run), the others are no-ops there
+MULTI_DEVICE_RAISES = {
+    "--multihost": "MASTER_ADDR|RANK|WORLD_SIZE",
+    "--pp 2": "train_latent_ddim",
+    "--sp 2": "'seq' mesh wants 2 devices",
+}
+
+
 @pytest.mark.parametrize("flags", [["--mesh_devices", "2"], ["--multihost"],
                                    ["--fsdp"], ["--tp", "2"], ["--pp", "2"],
                                    ["--sp", "2"]])
 def test_multi_device_flags_raise(flags, monkeypatch):
     monkeypatch.setenv("INFODIFF_FORCE_CPU", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "INFODIFF_MULTIHOST"):
+        monkeypatch.delenv(key, raising=False)
+    match = MULTI_DEVICE_RAISES.get(" ".join(flags))
+    if match is None:
+        cfg = pcli.parse_args(shlex.split(RECIPE[0]) + flags)
+        plan = prunner.parallel_plan(cfg)
+        assert plan.mesh is None and plan.pp_mesh is None
+        assert plan.rows is None
+        return
+    with pytest.raises((ValueError, RuntimeError), match=match):
         pcli.main(shlex.split(RECIPE[0]) + flags)
 
 
 def test_one_device_values_of_those_flags_pass():
     cfg = pcli.parse_args(shlex.split(RECIPE[0]) + [
         "--mesh_devices", "1", "--tp", "1", "--pp", "1", "--sp", "1"])
-    prunner.check_single_device(cfg)
+    plan = prunner.parallel_plan(cfg)
+    assert (plan.mesh, plan.pp_mesh, plan.rows) == (None, None, None)
 
 
 def test_no_card_without_force_cpu_raises(monkeypatch):
