@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the torch port's generation, training, int8, vanilla / two-phase /
-VAE, 512px, ch-32 (mnist, chairs), command-line, evaluation and
-reference-checkpoint / image-folder paths on one NVIDIA GPU.
+VAE, 512px, ch-32 (mnist, chairs), command-line, evaluation,
+reference-checkpoint / image-folder, parallel, remat and tool paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -223,6 +224,26 @@ on the card. Phases, each printing one line or a few, any failure raising:
    N=16384, C=128, bf16) against the one-rank route (within 2e-2 of max
    |out|). A check the probe stops claims no result from the card.
 
+23. ``INFODIFF_REMAT=1`` and the measurement tools (``tools/``). The
+   remat check at 64px B=128 and 512px B=4, bf16, dropout on, from one set
+   of weights: the loss (within 1e-3 relative) and the gradient (within
+   1e-2 relative L2, beside the plain step against itself) of the
+   remat step against the plain one; then 2 (1) train steps each way with
+   their event time and peak memory; launches exactly the plain step's
+   plus, for each forward kernel (K1, K2, K3a, K3c), its launches inside
+   the ResBlocks once more (the recompute; counted by hooks on the
+   blocks). Then every tool at reduced sizes: flops_report (with the
+   plain 64px step's rate), memory_report (a typo refused; 64px, its train
+   step with remat, the 512px sampler at B=8, DDIM-2), profile_sampler
+   (DDIM-2 B=128, bf16 and int8) and profile_train (B=128) with their
+   trace summaries, latent_turbo_bench (a_dim 32, 64, 256, B=256,
+   T=1000, 5 reps: K4 exactly 21 a stream), pipeline_rehearsal (2,048
+   JPEGs), turbo_fid_delta (1 epoch, 256 samples a tier),
+   repr_learning_demo (1 epoch), trace_summary on the runner's trace of a
+   CLI train under ``INFODIFF_PROFILE`` (the mnist recipe, 21 steps), and
+   verify_inception_weights on a fixture (exit 0) and on it with a tensor
+   missing (exit 1).
+
 ``--only 9,10`` runs phases 1, 2 and the ones listed (no kernels line);
 ``--only 20`` runs 19 first.
 
@@ -314,13 +335,17 @@ from infodiffusion_tpu_torch.ops.cuda.library import (
 from infodiffusion_tpu_torch.pipelines import InfoDiffusionPipeline
 from infodiffusion_tpu_torch.tools import (
     adagn_rate,
+    env_set,
     flash_attn_bench,
+    in_directory,
     microbench_attention,
     qconv_bench,
+    run_cli,
     time_ms,
 )
 from infodiffusion_tpu_torch.tools.adagn_rate import films_of
 from infodiffusion_tpu_torch.tools.adagn_rate import inputs as adagn_inputs
+from infodiffusion_tpu_torch.tools.trace_summary import profile_step
 from infodiffusion_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
@@ -2018,24 +2043,6 @@ def check_latent_traj_int8(lat, device, results):
     results.time("latent_traj_int8", "bf16", km, pm, bnd)
 
 
-class env_set:
-    """Set environment variables for a block, then restore them."""
-
-    def __init__(self, values):
-        self.values = values
-
-    def __enter__(self):
-        self.saved = {k: os.environ.get(k) for k in self.values}
-        os.environ.update(self.values)
-
-    def __exit__(self, *exc):
-        for k, v in self.saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def rel_l2(got, want) -> float:
     got, want = got.double().cpu(), want.double().cpu()
     return ((got - want).norm() / want.norm()).item()
@@ -2670,34 +2677,14 @@ def report(path, out, n, dt, launches, smi, what="samples"):
 
 def profile_steps(run, label, smi, top=6):
     """Device time against wall time of ``run()`` (after one warm-up), and
-    the kernels that took the most of it, from torch.profiler: the device
-    events (kernels, copies), not the host ranges that also carry device
-    time (an autograd Function's range holds its kernel's time again)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    stats = [(e.self_device_time_total / 1e3, e.key)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    device = sum(ms for ms, _ in stats)
-    head = ", ".join(f"{key[:40]} {ms:.2f}" for ms, key in
-                     sorted(stats, reverse=True)[:top] if ms > 0)
-    k1 = [(ms, key) for ms, key in stats if "adagn" in key]
-    k1_str = "; ".join(f"{key[:70]} {ms:.2f}" for ms, key in
-                       sorted(k1, reverse=True))
-    print(f"[profile] {label}: device {device:.2f} ms in {wall:.2f} ms wall "
-          f"(device idle {1 - device / wall:.0%}; {smi}); most device ms: "
-          f"{head}; K1 family (forward and backward) "
-          f"{sum(ms for ms, _ in k1):.2f} ms: {k1_str}")
+    the kernels that took the most of it, from the summary of its
+    torch.profiler trace (``tools.trace_summary.profile_step``)."""
+    prof = profile_step(run, torch.device("cuda"), top=top)
+    head = ", ".join(f"{key[:40]} {ms:.2f}" for key, ms in prof["kernels"])
+    print(f"[profile] {label}: device {prof['device_ms']:.2f} ms in "
+          f"{prof['wall_ms']:.2f} ms wall (device idle {prof['idle']:.0%}; "
+          f"{smi}); most device ms: {head}; K1 family (forward and "
+          f"backward) {prof['adagn_ms']:.2f} ms")
 
 
 def slice_paths(device, smi, sites):
@@ -4043,7 +4030,7 @@ def card_vs_cpu(device):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated phases (3-22) to run after 1 "
+                        help="comma-separated phases (3-23) to run after 1 "
                              "and 2 (20 runs 19 first); default all, which "
                              "also prints the kernels line")
     only = {int(p) for p in parser.parse_args().only.split(",") if p}
@@ -4189,6 +4176,15 @@ def main() -> None:
         work = tempfile.mkdtemp(prefix="infodiff_parallel_")
         try:
             by_path["parallel"] = parallel_path(device, smi, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    if run(23):
+        import shutil
+        import tempfile
+
+        work = tempfile.mkdtemp(prefix="infodiff_tools_")
+        try:
+            by_path.update(remat_and_tools(device, smi, work))
         finally:
             shutil.rmtree(work, ignore_errors=True)
     run(None)  # the last phase's time
@@ -4582,6 +4578,356 @@ def parallel_path(device, smi, work):
         if not r["rel"] <= PARALLEL_TOL["ring"]:
             raise AssertionError(f"two-rank ring: {r['rel']:.3e}")
     return launches
+
+
+# phase 23: INFODIFF_REMAT=1 and the measurement tools. The remat runs:
+# (image size, batch, train steps); the remat step's loss and gradient
+# against the plain step's, from the same weights and dropout draws: the
+# loss within REMAT_LOSS_TOL relative, the gradient within GRAD_TOL
+# relative L2 (the recompute repeats the forward's arithmetic; what can
+# differ is cuDNN's and the backward's order of summation, printed beside
+# as the plain step against itself)
+REMAT_RUNS = ((64, BATCH, 2), (HIRES, HIRES_BATCH["train"], 1))
+REMAT_LOSS_TOL = 1e-3
+# the forward kernels: under remat each launch inside a ResBlock happens
+# again in the backward's recompute; the backward kernels do not repeat
+FORWARD_KERNELS = ("adagn", "attention", "flash_attention",
+                   "flash_attention_online")
+TOOLS_N = {"corpus": 2048, "fid_samples": 256, "fid_real": 512,
+           "fid_train": 256, "ltb_reps": 5, "repr_epochs": 1}
+TRACE_CLI = ["--model", "diff", "--prior", "regular", "--dataset", "mnist",
+             "--a_dim", "32", "--data_dir", "synthetic", "--diffusion_steps",
+             "50", "--batch_size", "16", "--r_seed", "7", "-e", "1",
+             "--mode", "train", "--save_epochs", "1"]
+
+
+def _grad_rel_l2(got, want) -> float:
+    num = sum(float((g.float() - w.float()).pow(2).sum())
+              for g, w in zip(got, want))
+    den = sum(float(w.float().pow(2).sum()) for w in want)
+    return math.sqrt(num / den)
+
+
+def _in_block_launches(model, run):
+    """Launches per kernel inside the ResBlocks (the blocks remat wraps)
+    during ``run()``, counted by hooks around each block's forward."""
+    from infodiffusion_tpu_torch.nn.blocks import _ResBlockBase
+
+    inside = zero_launches()
+    at = {}
+
+    def pre(mod, args):
+        at[mod] = read_launches()
+
+    def post(mod, args, out):
+        now = read_launches()
+        for k in inside:
+            inside[k] += now[k] - at[mod][k]
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, _ResBlockBase):
+            handles += [m.register_forward_pre_hook(pre),
+                        m.register_forward_hook(post)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return inside
+
+
+def remat_check(size, batch, steps, device, smi):
+    """One remat run: the gradient check, then ``steps`` train steps each
+    way from the same weights (peak memory, event time, launches; the
+    remat steps' launches, exactly the plain steps' plus the recompute,
+    are returned)."""
+    base = train_model(torch.bfloat16, device, size)
+    x = torch.from_numpy(np.random.RandomState(size).randn(
+        batch, size, size, 3).astype(np.float32)).to(device)
+
+    def grads():
+        return loss_and_grads(base, x, 0, deterministic=False,
+                              rngs=step_rngs(0, 0, device))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    inside = _in_block_launches(base, grads)
+    torch.cuda.synchronize()
+    plain_n = read_launches()
+    loss_p, _, g_p = grads()
+    loss_p2, _, g_p2 = grads()
+    with env_set({"INFODIFF_REMAT": "1"}):
+        torch.cuda.synchronize()
+        reset_launches()
+        loss_r, _, g_r = grads()
+        torch.cuda.synchronize()
+        remat_n = read_launches()
+    want = {k: plain_n[k] + (inside[k] if k.split("_c")[0] in
+                             FORWARD_KERNELS else 0) for k in plain_n}
+    expect(f"remat {size}px loss_and_grads", remat_n, want)
+    loss_rel = abs(float(loss_r) - float(loss_p)) / abs(float(loss_p))
+    rel, rel_self = _grad_rel_l2(g_r, g_p), _grad_rel_l2(g_p2, g_p)
+    del g_p, g_p2, g_r
+    recompute = {k: v for k, v in inside.items() if v}
+    print(f"[remat] {size}px B={batch}, bf16, dropout on, one loss and "
+          f"gradient each way: loss {float(loss_p):.6f} plain, "
+          f"{float(loss_r):.6f} remat (rel {loss_rel:.3e}, bar "
+          f"{REMAT_LOSS_TOL}); gradient rel L2 {rel:.3e} (bar {GRAD_TOL}; "
+          f"the plain step against itself {rel_self:.3e}, loss "
+          f"{'bitwise' if float(loss_p2) == float(loss_p) else 'not bitwise'}"
+          f"); launches inside the ResBlocks a forward {recompute}, run "
+          f"again under remat: exact")
+    if not (loss_rel <= REMAT_LOSS_TOL and rel <= GRAD_TOL):
+        raise AssertionError(f"remat {size}px: loss rel {loss_rel:.3e}, "
+                             f"gradient rel L2 {rel:.3e}")
+    out = {}
+    for remat in (False, True):
+        model = copy.deepcopy(base)
+        tx = make_optimizer(LR, 50, 1000)
+        state = create_train_state(model, seed=0, tx=tx)
+        step = make_train_step(model, tx)
+        with env_set({"INFODIFF_REMAT": "1" if remat else "0"}):
+            state, _ = step(state, x, 0)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                state, metrics = step(state, x, 0)
+            end.record()
+            torch.cuda.synchronize()
+        out[remat] = dict(ms=start.elapsed_time(end) / steps,
+                          peak=torch.cuda.max_memory_allocated(),
+                          launches=read_launches(),
+                          loss=float(metrics["loss"]))
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    want = {k: out[False]["launches"][k] + steps * (
+        inside[k] if k.split("_c")[0] in FORWARD_KERNELS else 0)
+        for k in out[False]["launches"]}
+    expect(f"remat {size}px train steps", out[True]["launches"], want)
+    p, r = out[False], out[True]
+    print(f"[remat] {size}px B={batch}, {steps} train steps each way: "
+          f"plain {p['ms']:.2f} ms a step, peak {p['peak'] / 2**30:.2f} GiB;"
+          f" remat {r['ms']:.2f} ms a step, peak {r['peak'] / 2**30:.2f} GiB"
+          f" (event time, the first step warm; {smi}); losses "
+          f"{p['loss']:.6f} / {r['loss']:.6f}; remat launches "
+          f"{ {k: v for k, v in r['launches'].items() if v} }, exactly the "
+          f"plain steps' plus the recompute")
+    if abs(r["loss"] - p["loss"]) > REMAT_LOSS_TOL * abs(p["loss"]):
+        raise AssertionError(f"remat {size}px: train losses {p['loss']} "
+                             f"and {r['loss']}")
+    return out[True]["launches"], batch * 1e3 / p["ms"]
+
+
+def _tool(label, fn, needed=(), want=None):
+    """Run one tool (launches counted from zero); fail unless each kernel
+    in ``needed`` launched (exactly ``want`` where given)."""
+    out, dt, n = timed(fn)
+    idle = [k for k in needed if not n[k]]
+    if idle:
+        raise AssertionError(f"{label}: kernels not launched: {idle}")
+    if want is not None:
+        expect(label, n, want)
+    print(f"[tools] {label}: {dt:.2f} s wall; launches "
+          f"{ {k: v for k, v in n.items() if v} }")
+    return out, n
+
+
+def _check_summary(label, summary, categories):
+    """A trace summary of the card: device events, an idle share in
+    [0, 1], and each category in ``categories`` with device time."""
+    cats = summary["by_category_ms"]
+    missing = [c for c in categories if not cats.get(c)]
+    if not summary["device_events"] or missing or not (
+            0.0 <= summary["idle_share"] <= 1.0):
+        raise AssertionError(f"{label}: trace summary {summary}")
+    gaps = [(round(g["ms"], 3), g["host_op"]) for g in summary["gaps"][:3]]
+    print(f"[trace_summary] {label}: device {summary['device_ms']:.2f} ms "
+          f"in a {summary['window_ms']:.2f} ms window, idle share "
+          f"{summary['idle_share']:.3f}; by category (ms) "
+          f"{ {c: round(v, 3) for c, v in cats.items()} }; longest gaps "
+          f"(ms, host op) {gaps}")
+
+
+def tools_path(device, smi, work, train_rate):
+    """Phase 23's tools at reduced sizes; returns their launches."""
+    from infodiffusion_tpu_torch.metrics import inception as INC
+    from infodiffusion_tpu_torch.tools import (
+        flops_report,
+        latent_turbo_bench,
+        memory_report,
+        pipeline_rehearsal,
+        profile_sampler,
+        profile_train,
+        repr_learning_demo,
+        trace_summary,
+        turbo_fid_delta,
+        verify_inception_weights,
+    )
+
+    by_path = {}
+    fl, _ = _tool("flops_report", lambda: flops_report.main(
+        train_imgs_per_s=train_rate, card=smi))
+    fwd = fl["forward_gflop_per_sample"]
+    if not (fwd["counted_on"] == "meta" and 0 < fwd["valid_taps"]["total"]
+            < fwd["all_taps"]["total"]):
+        raise AssertionError(f"flops_report: {fwd}")
+    print(f"[flops] forward {fwd['valid_taps']['total']:.6f} GFLOP a "
+          f"sample (valid taps, the mfu basis; {fwd['all_taps']['total']:.6f}"
+          f" with the padding taps), train step "
+          f"{fl['train_step_gflop_per_image']['valid_taps']['total']:.6f}"
+          f" GFLOP an image, counted on {fwd['counted_on']}; the 64px "
+          f"train rate {train_rate:.2f} imgs/s of phase 23 is "
+          f"{fl['train_achieved']['tflops']:.2f} TFLOP/s, "
+          f"{fl['train_achieved']['share']:.2%} of the H100 SXM's dense "
+          f"bf16 peak ({smi})")
+    with env_set({"INFODIFF_MEMREPORT_PROGRAMS": "sampel"}):
+        try:
+            memory_report.main()
+        except SystemExit as exc:
+            print(f"[tools] memory_report refuses a typo: {exc}")
+        else:
+            raise AssertionError("memory_report took a typo")
+    steps2 = {"INFODIFF_BENCH_STEPS": "2"}
+    for label, env, needed in (
+            ("memory_64px", steps2, ("adagn_bwd", "attention")),
+            ("memory_64px_remat", {**steps2, "INFODIFF_REMAT": "1",
+                                   "INFODIFF_MEMREPORT_PROGRAMS": "train"},
+             ("adagn_bwd", "attention")),
+            ("memory_512px_sampler", {
+                **steps2, "INFODIFF_BENCH_SIZE": str(HIRES),
+                "INFODIFF_BENCH_BATCH": str(HIRES_BATCH["generate"]),
+                "INFODIFF_MEMREPORT_PROGRAMS": "sampler"},
+             ("flash_attention_online",))):
+        with env_set(env):
+            rows, n = _tool(f"memory_report {env}", memory_report.main,
+                            ("adagn",) + needed)
+        by_path[label] = n
+        for r in rows:
+            if not 0 < r["allocated_share"] <= r["reserved_share"] < 1:
+                raise AssertionError(f"memory_report: {r}")
+            print(f"[memory] {r['program']} {r['model']} B={r['batch']} "
+                  f"remat {r['remat']}: peak allocated "
+                  f"{r['peak_allocated_bytes'] / 2**30:.3f} GiB "
+                  f"({r['allocated_share']:.2%}), reserved "
+                  f"{r['peak_reserved_bytes'] / 2**30:.3f} GiB "
+                  f"({r['reserved_share']:.2%}) of {r['card']}")
+    for turbo, needed, cats in (("", ("attention",), ("K2 attention",)),
+                                ("int8", ("int8_conv",), ("int8 conv",))):
+        row, n = _tool(f"profile_sampler turbo={turbo!r}",
+                       lambda: profile_sampler.main(
+                           os.path.join(work, f"trace_sampler{turbo}"),
+                           device, batch=BATCH, steps=2, turbo=turbo),
+                       ("adagn",) + needed)
+        by_path[f"profile_sampler{turbo}"] = n
+        _check_summary(f"DDIM-2 B={BATCH} turbo={turbo!r}", row["summary"],
+                       ("K1 adagn",) + cats)
+    row, n = _tool("profile_train", lambda: profile_train.main(
+        os.path.join(work, "trace_train"), device, batch=BATCH),
+        ("adagn", "adagn_bwd", "attention", "flash_attention_bwd"))
+    by_path["profile_train"] = n
+    _check_summary(f"train step B={BATCH}", row["summary"],
+                   ("K1 adagn", "K1-bwd adagn_bwd", "K2 attention",
+                    "K3b flash_attention_bwd"))
+    reps = TOOLS_N["ltb_reps"]
+    per = 2 + reps  # the max_abs_diff call, the warm-up, the reps
+    rows, n = _tool("latent_turbo_bench", lambda: latent_turbo_bench.main(
+        device, reps=reps), want={"latent_traj": 3 * per,
+                                  "latent_traj_int8": 3 * per})
+    by_path["latent_turbo_bench"] = n
+    for r in rows:
+        print(f"[latent int8] a_dim {r['a_dim']} B={r['batch']} T={r['T']} "
+              f"route {r['route']}: bf16 {r['bf16_ms']:.3f} ms (spread "
+              f"{r['bf16_spread_ms']:.3f}), int8 {r['int8_ms']:.3f} ms "
+              f"(spread {r['int8_spread_ms']:.3f}), speedup "
+              f"{r['speedup']:.3f}, significant {r['significant']}, max abs "
+              f"diff {r['max_abs_diff']:.4f} ({smi})")
+    jpegs = os.path.join(work, "jpegs")
+    v, n = _tool("pipeline_rehearsal", lambda: pipeline_rehearsal.main(
+        ["--n", str(TOOLS_N["corpus"]), "--dir", jpegs, "--decode-limit",
+         str(TOOLS_N["corpus"]), "--encode-limit", str(TOOLS_N["corpus"])]),
+        ("adagn", "attention"))
+    by_path["pipeline_rehearsal"] = n
+    print(f"[pipeline] {v['corpus_files']} JPEGs (178x218, q85, mean "
+          f"{v['mean_jpeg_kb']:.2f} KB): {v['native_backend']} "
+          f"{v['native_decode_imgs_per_sec']:.1f} images/s on "
+          f"{v['host_cores']} cores, PIL {v['pil_decode_imgs_per_sec']:.1f};"
+          f" the Encoder (B=256) {v['device_encode_imgs_per_sec']:.1f} "
+          f"images/s; save_latent end to end "
+          f"{v['save_latent_e2e_imgs_per_sec']:.1f}; cores for the encode "
+          f"rate {v['cores_for_compute_bound']:.2f}, decode keeps up: "
+          f"{v['decode_keeps_up']} (host clock, synchronised; {smi})")
+    with env_set({"INFODIFF_TFD_DIR": os.path.join(work, "tfd"),
+                  "INFODIFF_TFD_EPOCHS": "1",
+                  "INFODIFF_TFD_SAMPLES": str(TOOLS_N["fid_samples"]),
+                  "INFODIFF_TFD_REAL_N": str(TOOLS_N["fid_real"]),
+                  "INFODIFF_SYNTHETIC_N": str(TOOLS_N["fid_train"])}):
+        rec, n = _tool("turbo_fid_delta", turbo_fid_delta.main,
+                       ("adagn", "adagn_bwd", "attention", "latent_traj",
+                        "int8_conv"))
+    by_path["turbo_fid_delta"] = n
+    if not all(math.isfinite(rec[k]) for k in ("fid_bf16", "fid_int8",
+                                               "real_floor")):
+        raise AssertionError(f"turbo_fid_delta: {rec}")
+    print(f"[turbo_fid_delta] 1 epoch, {rec['n_samples']} samples a tier: "
+          f"FID bf16 {rec['fid_bf16']:.4f}, int8 {rec['fid_int8']:.4f}, "
+          f"delta {rec['delta']:.4f} ({rec['delta_vs_bf16_pct']:.3f}%), "
+          f"real floor {rec['real_floor']:.4f}: {rec['verdict']} "
+          f"({rec['extractor']})")
+    out, n = _tool("repr_learning_demo", lambda: repr_learning_demo.main(
+        [os.path.join(work, "repr"), "--epochs",
+         str(TOOLS_N["repr_epochs"])]), ("adagn", "adagn_bwd"))
+    by_path["repr_learning_demo"] = n
+    if not out["ridge_r2"] or not all(map(math.isfinite,
+                                          out["ridge_r2"].values())):
+        raise AssertionError(f"repr_learning_demo: {out}")
+    print(f"[repr] {TOOLS_N['repr_epochs']} epoch on 2,048 sprites, latents "
+          f"{out['latents']}: ridge R^2 "
+          f"{ {k: round(v, 4) for k, v in out['ridge_r2'].items()} }")
+    # a short CLI train (the verify recipe: mnist, B=16, 21 steps) with
+    # INFODIFF_PROFILE set: the runner traces steps 10-20
+    runner_trace = os.path.join(work, "runner_trace")
+    with in_directory(os.path.join(work, "cli_trace")):
+        _, n = _tool("CLI train under INFODIFF_PROFILE", lambda: run_cli(
+            TRACE_CLI, {"INFODIFF_PROFILE": runner_trace,
+                        "INFODIFF_SYNTHETIC_N": str(21 * 16)}),
+            ("adagn", "adagn_bwd"))
+    by_path["cli_trace"] = n
+    _check_summary("the runner's trace (INFODIFF_PROFILE, steps 10-20 of "
+                   "a CLI train)",
+                   trace_summary.main([runner_trace, "--top", "5"]),
+                   ("K1 adagn", "K1-bwd adagn_bwd"))
+    fixture = os.path.join(work, "pt_inception-fixture.pth")
+    sd = INC.random_state_dict(seed=7)
+    torch.save(sd, fixture)
+    broken = os.path.join(work, "pt_inception-broken.pth")
+    torch.save({k: v for k, v in sd.items()
+                if k != "Mixed_7c.branch_pool.conv.weight"}, broken)
+    rc = verify_inception_weights.main([fixture])
+    rc_broken = verify_inception_weights.main([broken])
+    print(f"[tools] verify_inception_weights: exit {rc} on the fixture "
+          f"(forward on the card), {rc_broken} on it with a key removed")
+    if (rc, rc_broken) != (0, 1):
+        raise AssertionError("verify_inception_weights: exit codes "
+                             f"{rc}, {rc_broken}")
+    return by_path
+
+
+def remat_and_tools(device, smi, work):
+    """Phase 23: the remat check at 64px and 512px, then every tool."""
+    by_path, train_rate = {}, None
+    for size, batch, steps in REMAT_RUNS:
+        by_path[f"remat_{size}px"], rate = remat_check(size, batch, steps,
+                                                       device, smi)
+        train_rate = train_rate or rate
+        torch.cuda.empty_cache()
+    by_path.update(tools_path(device, smi, work, train_rate))
+    return by_path
+
 
 
 def kernel_lines(results, by_path):

@@ -121,7 +121,12 @@ class DataLoader:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         u8 = self.u8_transfer()
-        device = self.device
+        # the producer thread starts on card 0: it takes the card by index,
+        # the consumer's current one where the device names none
+        card = None
+        if self.device.type == "cuda":
+            card = (self.device.index if self.device.index is not None
+                    else torch.cuda.current_device())
 
         def put(item):
             # a plain put would block forever on a full queue once the
@@ -136,8 +141,8 @@ class DataLoader:
 
         def producer():
             try:
-                if device.type == "cuda":
-                    torch.cuda.set_device(device)
+                if card is not None:
+                    torch.cuda.set_device(card)
                 for b in range(first, nb):
                     if stop.is_set():
                         return

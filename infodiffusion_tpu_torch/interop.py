@@ -87,6 +87,24 @@ def from_jax_params(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
+def flax_param_tree(module: torch.nn.Module, leaf) -> dict:
+    """The Flax params tree of ``module`` (the layout rules run backwards),
+    each leaf ``leaf(shape)`` for its Flax shape: the tree's structure
+    without tracing the Flax model's init."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *path, key = name.split(".")
+        shape = tuple(p.shape)
+        if key == "weight":
+            key, shape = (("scale", shape) if len(shape) == 1 else
+                          ("kernel", shape[2:] + shape[1::-1]))
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[key] = leaf(shape)
+    return tree
+
+
 def from_jax_quant(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
     """Carry a Flax ``variables['quant']`` tree (the int8 tier's calibrated
     ``act_absmax`` entries and ``fused_qconv`` markers) into ``module``'s

@@ -17,6 +17,10 @@ at each position:
 - ``'encoder'``: unconditioned EncoderResBlocks, ``Encoder`` and
   ``Decoder``.
 
+Under ``INFODIFF_REMAT=1`` every down, middle and up block runs under
+``nn.blocks.remat_block`` where autograd records (JAX wraps the same
+blocks in ``nn.remat``).
+
 Public layout is NHWC; inside, activations are NCHW in ``channels_last``.
 """
 
@@ -36,6 +40,8 @@ from infodiffusion_tpu_torch.nn.blocks import (
     ResBlock,
     UpSample,
     _GNParams,
+    remat_block,
+    remat_enabled,
 )
 from infodiffusion_tpu_torch.nn.embeddings import TimeEmbedding
 from infodiffusion_tpu_torch.nn.initializers import (
@@ -122,6 +128,7 @@ class _UNetSkeleton(nn.Module):
         """x: NCHW (``channels_last``) -> NCHW. ``temb`` conditions the
         ResBlocks and AuxResBlocks, ``aemb`` the AuxResBlocks."""
         conds = {"none": (), "time": (temb,), "aux": (temb, aemb)}
+        remat = remat_enabled() and torch.is_grad_enabled()
         h = self.head(x)
         hs = [h]
         for kind, name, cond in self._plan:
@@ -133,7 +140,11 @@ class _UNetSkeleton(nn.Module):
                 continue
             if kind == "up":  # the block concatenates the pieces
                 h = (h, hs.pop())
-            h = mod(h, *conds[cond], deterministic, generator)
+            if remat:
+                h = remat_block(mod, h, *conds[cond], deterministic,
+                                generator=generator)
+            else:
+                h = mod(h, *conds[cond], deterministic, generator)
             if kind == "down":
                 hs.append(h)
         return self.tail_conv(F.silu(self.tail_norm(h)))

@@ -23,15 +23,22 @@ norm marked ``fused_qconv`` by calibration hands its conv an
 ``_AffineChain`` when the fused kernel is on (``use_fused_qconv``) and the
 call is deterministic: the conv then runs K7 (``ops/cuda/qconv.py``) on
 the unnormalized pieces.
+
+``INFODIFF_REMAT=1`` (read at call time, as the JAX UNet reads it) runs
+each ResBlock of a UNet skeleton under ``torch.utils.checkpoint``
+(:func:`remat_block`): the backward recomputes the block's activations
+instead of keeping them, and the recompute draws the same dropout masks.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from infodiffusion_tpu_torch.nn.attention import AttnBlock
 from infodiffusion_tpu_torch.nn.initializers import (
@@ -94,6 +101,44 @@ def apply_dropout(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
+
+
+def remat_enabled() -> bool:
+    """``INFODIFF_REMAT=1``: the UNet skeletons recompute each ResBlock in
+    the backward (:func:`remat_block`)."""
+    return os.environ.get("INFODIFF_REMAT") == "1"
+
+
+def remat_block(block: nn.Module, *args,
+                generator: Optional[torch.Generator] = None):
+    """``block(*args, generator)`` under non-reentrant
+    ``torch.utils.checkpoint``, JAX's ``nn.remat`` of the block: only its
+    inputs are kept, and the backward runs its forward again.
+
+    ``checkpoint`` restores the global generators for the recompute, not
+    dropout's explicit ``generator``, which the rest of the forward has
+    moved on: the recompute would draw other masks and the gradient would
+    be silently wrong. So the generator's state before the block is kept,
+    the recompute draws from it, and the generator goes back afterwards
+    to where the backward found it (also when the recompute stops early,
+    as ``checkpoint`` does once it has what the backward needs)."""
+    if generator is None:
+        return checkpoint(block, *args, None, use_reentrant=False)
+    before = generator.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward itself
+            return block(*a, generator)
+        now = generator.get_state()
+        generator.set_state(before)
+        try:
+            return block(*a, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:

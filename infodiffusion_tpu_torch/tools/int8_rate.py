@@ -21,23 +21,21 @@ script (``python path/to/int8_rate.py``), which times the package that
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
 import numpy as np
 import torch
 
-from infodiffusion_tpu_torch.config import Config
 from infodiffusion_tpu_torch.diffusion.samplers import DiffusionProcess
 from infodiffusion_tpu_torch.models.wrappers import build_model
-from infodiffusion_tpu_torch.tools import resolve_device
-from infodiffusion_tpu_torch.tools.train_rate import (
-    profile_step,
+from infodiffusion_tpu_torch.tools import (
+    A_DIM,
+    flagship_config,
+    resolve_device,
     synchronize,
 )
-
-A_DIM = 256
+from infodiffusion_tpu_torch.tools.trace_summary import profile_step
 
 
 def main(device=None, batch: int = 128, steps: int = 100, repeats: int = 2,
@@ -48,9 +46,7 @@ def main(device=None, batch: int = 128, steps: int = 100, repeats: int = 2,
     device = resolve_device(device)
     if profile and device.type != "cuda":
         raise ValueError("--profile reads the card's device time")
-    cfg = dataclasses.replace(Config(
-        model="diff", dataset="celeba", a_dim=A_DIM,
-        diffusion_steps=1000).with_dataset_config(), input_size=size)
+    cfg = flagship_config(size)
     torch.manual_seed(0)
     net = build_model(cfg, dtype=torch.bfloat16, device=device).eval()
     rng = np.random.RandomState(0)

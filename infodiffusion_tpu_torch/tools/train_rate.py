@@ -1,6 +1,6 @@
 """Training rate of one model at the CelebA-64 widths: imgs/s of
 ``make_train_step`` and, with ``--profile``, one step's device time by
-kernel (torch.profiler).
+kernel (torch.profiler, ``trace_summary.profile_step``).
 
     python -m infodiffusion_tpu_torch.tools.train_rate --model vae \\
         [--batch 64] [--steps 10] [--repeats 3] [--profile]
@@ -17,16 +17,19 @@ package that ``PYTHONPATH`` names: another checkout's, with the same steps.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
 import numpy as np
 import torch
 
-from infodiffusion_tpu_torch.config import Config
 from infodiffusion_tpu_torch.models.wrappers import build_model
-from infodiffusion_tpu_torch.tools import resolve_device
+from infodiffusion_tpu_torch.tools import (
+    flagship_config,
+    resolve_device,
+    synchronize,
+)
+from infodiffusion_tpu_torch.tools.trace_summary import profile_step
 from infodiffusion_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
@@ -34,39 +37,6 @@ from infodiffusion_tpu_torch.train.state import (
 from infodiffusion_tpu_torch.train.step import make_train_step
 
 MODELS = ("diff", "vanilla", "vae")  # the InfoDiff, the vanilla Diff, the VAE
-
-
-def synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def profile_step(run, device: torch.device, top: int = 8) -> dict:
-    """Device and wall ms of one ``run()`` (after a warm-up), the kernels
-    that took the most device time, from torch.profiler's device events,
-    and the device ms of K1's family (the kernels named for adagn, forward
-    and backward)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        synchronize(device)
-        wall = (time.perf_counter() - t0) * 1e3
-    stats = [(e.self_device_time_total / 1e3, e.key)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    busy = sum(ms for ms, _ in stats)
-    return {"device_ms": busy, "wall_ms": wall,
-            "idle": 1 - busy / wall if wall > 0 else None,
-            "adagn_ms": sum(ms for ms, key in stats if "adagn" in key),
-            "kernels": [[key[:80], ms] for ms, key in
-                        sorted(stats, reverse=True)[:top] if ms > 0]}
 
 
 def main(model: str = "vae", device=None, batch: int = 64, steps: int = 10,
@@ -77,9 +47,7 @@ def main(model: str = "vae", device=None, batch: int = 64, steps: int = 10,
     device = resolve_device(device)
     if profile and device.type != "cuda":
         raise ValueError("--profile reads the card's device time")
-    cfg = dataclasses.replace(Config(
-        model=model, dataset="celeba", a_dim=256,
-        diffusion_steps=1000).with_dataset_config(), input_size=size)
+    cfg = flagship_config(size, model)
     torch.manual_seed(0)
     net = build_model(cfg, dtype=torch.bfloat16, device=device).train()
     tx = make_optimizer(1e-4, 50, 1000)

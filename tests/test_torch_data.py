@@ -150,6 +150,20 @@ def test_producer_exception_reaches_the_consumer():
         list(DataLoader(ds, 4, device="cpu"))
 
 
+@pytest.mark.parametrize("device,want", [("cuda", 3), ("cuda:1", 1)])
+def test_producer_takes_the_card_by_index(monkeypatch, device, want):
+    """``set_device`` needs an index: a bare ``cuda`` device gives the
+    producer thread the consumer's current card."""
+    taken = []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "set_device", taken.append)
+    ds = pds.ArrayDataset(images=np.zeros((8, 2, 2, 1), np.uint8))
+    loader = DataLoader(ds, 4, device=device)
+    monkeypatch.setattr(loader, "_to_device", lambda x, u8: x)
+    assert len(list(loader)) == 2
+    assert taken == [want]
+
+
 # ------------------------------------------------- on-disk readers
 
 
