@@ -82,16 +82,37 @@ on the card. Phases, each printing one line or a few, any failure raising:
    range and its chain against the exact one on random and special
    values (qconv_chain_check), and the chain floor: the chain's SASS
    instructions an element over the SMs' issue rate.
+   Last, K1 at the int8x tier's norm1 sites, where it reads f32 input in
+   the bf16 model (B=128, each ResBlock's input C), against its plain
+   version with its plan, event and device times and F.group_norm's (not
+   in the kernels line).
 10. the int8 slice, flagship, bf16, B=128:
    ``LatentDiffusionProcess(turbo='int8').sampling`` then
    ``DiffusionProcess(turbo='int8').sampling(num_steps=100)`` on the
    default route, with ``INFODIFF_ENABLE_FUSED_QCONV=1`` (K7) and with
-   ``INFODIFF_QCONV_V2=1`` as well: latents/s, samples/s, the images'
-   relative L2 against the bf16 slice from the same xT and a, exact
+   ``INFODIFF_QCONV_V2=1`` as well (those two at DDIM-25): latents/s,
+   samples/s, the images' relative L2 against the bf16 slice from the
+   same xT, a and steps, exact
    launches per route; a torch.profiler breakdown of two default-route
-   DDIM steps (device ms by kernel, idle share).
-11. card against CPU, int8: f32, B=2, the quant state calibrated once on
-   the CPU and carried across; latents T=1000 then DDIM-10 per route.
+   DDIM steps (device ms by kernel, idle share). Then the int8x tier
+   (``turbo='int8x'``: the latent prior on the int8 stream, each ResBlock
+   reading its input through an s8 view, the shortcuts s8 products on
+   ``torch._int_mm``): exact launches (K1, K2 and the int8 conv per
+   forward, K4 int8 once, no K7, no K6, the s8 products per forward),
+   samples/s beside int8_default and bf16 of this call, the images
+   against bf16, a profile of two steps. Then the int8 tier's DDIM-25
+   (default route) calibrated and run under
+   ``INFODIFF_SUBPIXEL_UPSAMPLE=1`` (the upsample convs unquantized, in
+   bf16) against the literal int8 tier in turns (literal, subpixel,
+   subpixel, literal): samples/s, relative L2, exact launches.
+11. card against CPU, int8 and int8x: f32, B=2, each quant state
+   calibrated once on the CPU and carried across; latents T=1000 then
+   DDIM-10 per route; under int8x also each block's s8 view (bitwise),
+   each s8 shortcut (within 1e-2) and each s32 product (exact) on the
+   CPU's inputs. Then int8x at batch 1 on a 32px dataset (dsprites, ch 32,
+   ch_mult (1,2,2,2): 16-row shortcut products at the 4x4 level), as
+   ``--mode disentangle`` runs it: ``reverse_sampling`` on the card, T=10,
+   each s32 product exact against ``int8_dot_reference``.
 12. the vanilla / two-phase slice's kernels, each against its plain
    version in f32 and bf16 with CUDA-event times, bound and library time:
    K6 (fused shortcut) at every shortcut site of one flagship InfoDiff
@@ -105,12 +126,12 @@ on the card. Phases, each printing one line or a few, any failure raising:
    unrounded, which a K2' without its lo product would not be).
 13. the new paths at full width, bf16, random weights: the flagship
    InfoDiff, the vanilla Diff (UNet ch 64, ch_mult (1,2,4,8), attention at
-   level 2) and the VAE (a_dim 256, (1,2,4,8)): two-phase sampling (T=1000,
-   split 500, B=32), vanilla DDIM-100 (B=64) on the default and the K6
+   level 2) and the VAE (a_dim 256, (1,2,4,8)): two-phase sampling (T=100,
+   split 50, B=32), vanilla DDIM-100 (B=64) on the default and the K6
    route (in turns: default, K6, K6, default; a torch.profiler breakdown of
    two steps of each), InfoDiff DDIM-100 on the K6 route, the pipeline's
    reconstruct
-   (encode, 998 reverse steps, DDIM-100, B=32), the latent prior's
+   (T=100: encode, 98 reverse steps, DDIM-100, B=32), the latent prior's
    per-forward route (K5, T=1000 sampling + reverse, B=128) and VAE decode
    (B=128, both routes): samples/s and launches per kernel and path, with
    the exact launch counts asserted.
@@ -278,6 +299,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from infodiffusion_tpu_torch import runner
 from infodiffusion_tpu_torch.config import Config
 from infodiffusion_tpu_torch.diffusion.samplers import (
     DiffusionProcess,
@@ -287,11 +309,16 @@ from infodiffusion_tpu_torch.diffusion.samplers import (
 )
 from infodiffusion_tpu_torch.diffusion.schedule import make_schedule
 from infodiffusion_tpu_torch.models.wrappers import Diff, InfoDiff, build_model
+from infodiffusion_tpu_torch.nn.attention import _GN
 from infodiffusion_tpu_torch.nn.blocks import (
     Conv3,
     PieceConv3,
     ShortcutDense,
+    UpSample,
     _AffineChain,
+    _GNParams,
+    _ResBlockBase,
+    _XQuant,
 )
 from infodiffusion_tpu_torch.ops import quant as Q
 from infodiffusion_tpu_torch.ops.cuda import adagn as K1
@@ -399,14 +426,20 @@ L2_BYTES = 50 * 2**20
 # computed in f64 on the CPU); a K2' without its lo product computes K2's
 # function and would read the same as K2
 TILED_MEAN_SHARE = 0.1
-# DDIM steps of the int8 slice on every route (bench.py's headline)
+# DDIM steps of the int8 slice (bench.py's headline) on the default route
+# and under int8x; the K7 routes and the subpixel turns take DDIM-25, cut
+# from 100 to fit the run's limit
 INT8_STEPS = 100
+SHORT_STEPS = 25
+INT8_ROUTE_STEPS = {"int8_default": INT8_STEPS, "int8_fused": SHORT_STEPS,
+                    "int8_fused_v2": SHORT_STEPS}
 INT8_ROUTES = {
     "int8_default": {},
     "int8_fused": {"INFODIFF_ENABLE_FUSED_QCONV": "1"},
     "int8_fused_v2": {"INFODIFF_ENABLE_FUSED_QCONV": "1",
                       "INFODIFF_QCONV_V2": "1"},
 }
+SUBPIXEL = "INFODIFF_SUBPIXEL_UPSAMPLE"
 INT8_ROUTE_KERNELS = {
     "int8_default": ("latent_traj_int8", "int8_conv", "adagn", "attention"),
     "int8_fused": ("latent_traj_int8", "qconv", "int8_conv", "adagn",
@@ -415,16 +448,16 @@ INT8_ROUTE_KERNELS = {
                       "attention"),
 }
 
-# exact launches of one latent run and one DDIM-100 per route: per UNet
+# exact launches of one latent run and one DDIM run per route: per UNet
 # forward 84 int8 convs on the default route; on the fused ones K7 takes
 # 66 of them and 6 stay int8 convs; K2 6 a forward; K4's int8 stream once
 INT8_LAUNCHES = {
-    route: {"int8_conv": n_conv * INT8_STEPS, "qconv": k7 * INT8_STEPS,
-            "qconv_v2": k7v2 * INT8_STEPS, "attention": 6 * INT8_STEPS,
-            "latent_traj_int8": 1}
+    route: {"int8_conv": n_conv * n, "qconv": k7 * n, "qconv_v2": k7v2 * n,
+            "attention": 6 * n, "latent_traj_int8": 1}
     for route, n_conv, k7, k7v2 in (("int8_default", 84, 0, 0),
                                     ("int8_fused", 6, 66, 0),
-                                    ("int8_fused_v2", 6, 0, 66))}
+                                    ("int8_fused_v2", 6, 0, 66))
+    for n in (INT8_ROUTE_STEPS[route],)}
 
 KERNELS = {
     "adagn": dict(fn=adagn_cuda, route="cuda",
@@ -1003,14 +1036,16 @@ def group_norm_kernels(x, gamma, beta) -> str:
     return "; ".join(n[:60] for n in names)
 
 
-def check_adagn(sites, device, reps, results, B=BATCH, line=True):
+def check_adagn(sites, device, reps, results, B=BATCH, line=True,
+                dtypes=DTYPES, graph_dtype=torch.bfloat16):
     """K1 at every (HW, C, K) of ``sites`` at batch ``B``, each against its
     plain version, each twice (bitwise the same); with ``reps``, CUDA-event
-    ms of both and in bf16 the plan, the CUDA-graph device ms and, at the
-    K=0 sites, F.group_norm's on the channels_last view, summed into the
-    kernels line where ``line``. ``reps=0`` checks the errors only."""
+    ms of both and in ``graph_dtype`` the plan, the CUDA-graph device ms
+    and, at the K=0 sites, F.group_norm's on the channels_last view, summed
+    into the kernels line where ``line``. ``reps=0`` checks the errors
+    only."""
     g = torch.Generator(device=device).manual_seed(1)
-    for tag, dtype in DTYPES.items():
+    for tag, dtype in dtypes.items():
         ms = plain_ms = dev_ms = gn_ms = gn_dev = k0_ms = k0_dev = 0.0
         last_k0 = None
         bnd = Bound()
@@ -1036,7 +1071,7 @@ def check_adagn(sites, device, reps, results, B=BATCH, line=True):
                                    lambda: adagn_reference(*args), reps)
                 ms, plain_ms = ms + km, plain_ms + pm
                 line_ += f"; {km:.4f} ms vs plain {pm:.4f} ms"
-            if reps and dtype == torch.bfloat16:
+            if reps and dtype == graph_dtype:
                 dm = device_ms(f"K1 HW={hw} C={c} K={k}",
                                lambda x, gm, bt, *pr: adagn_cuda(
                                    x, 32, gm, bt, films_of(pr)),
@@ -1658,6 +1693,22 @@ def qconv_sites(model, run):
     return sorted(chainless), sorted(fused)
 
 
+def norm1_sites(model, run):
+    """(HW, C, 0) of each ResBlock's norm1 in one forward of ``model``:
+    under int8x norm1 reads the block's s8 view dequantized in f32 whatever
+    the model's dtype, so K1 runs there on f32 input."""
+    found = set()
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, a: found.add((a[0].shape[2] * a[0].shape[3],
+                                a[0].shape[1], 0)))
+        for name, mod in model.named_modules() if name.endswith(".norm1")]
+    with torch.no_grad():
+        run()
+    for h in hooks:
+        h.remove()
+    return sorted(found)
+
+
 def int8_plan_str(B, h, w, c, cout, s) -> str:
     """The int8 conv's launch at one site (int8_conv_launch_plan)."""
     p = K7.int8_conv_launch_plan(B, h, w, K7.int8_conv_cin(c), cout, s)
@@ -2048,10 +2099,23 @@ def rel_l2(got, want) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
+def per_forward(model) -> dict:
+    """What one forward of the InfoDiff ``model``'s UNet launches of K1
+    (a GroupNorm module each) and, under int8x, of the s8 shortcut
+    products (one a piece of each shortcut's block)."""
+    mods = list(model.backbone.modules())
+    return {"adagn": sum(isinstance(m, (_GN, _GNParams)) for m in mods),
+            "int8_dot": sum(m.xq.n_pieces for m in mods
+                            if isinstance(m, _ResBlockBase)
+                            and m.shortcut is not None)}
+
+
 def int8_slice(device, smi):
     """The int8 tier at the flagship's width, bf16, B=BATCH: the latent
     prior with the int8 weight stream, then DDIM through the W8A8 UNet,
-    once per route. Returns each route's launch counts."""
+    once per route; then the int8x tier (the s8 views and shortcuts, the
+    default route) and the int8 tier under INFODIFF_SUBPIXEL_UPSAMPLE=1
+    against the literal one. Returns each route's launch counts."""
     cfg, img, lat = flagship(torch.bfloat16, device)
     gen = torch.Generator(device=device)
     latent = LatentDiffusionProcess(cfg, lat, turbo="int8")
@@ -2066,10 +2130,16 @@ def int8_slice(device, smi):
     lat_xT = torch.randn((BATCH, A_DIM), generator=gen.manual_seed(14),
                          device=device)
     a = latent.sampling(xT=lat_xT, generator=gen.manual_seed(15))
-    steps = INT8_STEPS
-    ref = plain.sampling(xT=xT, a=a, num_steps=steps).float()
+    plain.sampling(xT=xT, a=a, num_steps=2)  # warm-up
+    ref, dt, _ = timed(lambda: plain.sampling(xT=xT, a=a,
+                                              num_steps=INT8_STEPS))
+    # the bf16 images each step count compares with
+    refs = {INT8_STEPS: ref.float(), SHORT_STEPS: plain.sampling(
+        xT=xT, a=a, num_steps=SHORT_STEPS).float()}
+    rates = {"bf16": BATCH / dt}
     by_route = {}
     for route, env in INT8_ROUTES.items():
+        steps = INT8_ROUTE_STEPS[route]
         with env_set(env):
             turbo.sampling(xT=xT, a=a, num_steps=2)  # warm-up
             torch.cuda.synchronize()
@@ -2095,20 +2165,187 @@ def int8_slice(device, smi):
             raise AssertionError(f"{route}: kernels not launched: {idle}")
         expect(route, launches, INT8_LAUNCHES[route])
         moved = {k: v for k, v in launches.items() if v}
+        rates[route] = BATCH / (t2 - t1)
         print(f"[int8 slice] {route} B={BATCH}: latents (T={T}, int8 "
               f"weights) {t1 - t0:.3f} s = {BATCH / (t1 - t0):.2f} latents/s; "
               f"DDIM-{steps} 64px {t2 - t1:.3f} s = "
               f"{BATCH / (t2 - t1):.2f} samples/s (host clock, synchronised; "
               f"{smi}); images rel L2 against the bf16 slice from the same "
-              f"xT and a: {rel_l2(images, ref):.4f}; launches "
+              f"xT and a (DDIM-{steps}): {rel_l2(images, refs[steps]):.4f};"
+              f" launches "
               f"{moved}")
         by_route[route] = launches
         del images, lats
+    by_route["int8x"] = int8x_slice(cfg, img, lat, xT, a, refs[INT8_STEPS],
+                                    rates, smi)
+    by_route.update(subpixel_turns(cfg, img, turbo, xT, a, refs[SHORT_STEPS],
+                                   smi))
     return by_route
 
 
+def int8x_slice(cfg, img, lat, xT, a, ref, rates, smi):
+    """Phase 10's int8x route: the latent prior under turbo='int8x' (the
+    int8 stream: JAX normalizes the tier there), then DDIM-100 through the
+    UNet with its blocks' s8 views (norm1 in f32, the shortcuts on
+    torch._int_mm), on the default route (int8x makes no K7 marker);
+    exact launches, samples/s beside int8_default and bf16, the images
+    against bf16 and a profile of two steps."""
+    gen = torch.Generator(device=xT.device)
+    t0 = time.perf_counter()
+    turbox = DiffusionProcess(cfg, img, turbo="int8x")
+    torch.cuda.synchronize()
+    n_x = sum(k.endswith("x_absmax") for k in turbox.quant)
+    print(f"[int8 slice] int8x calibration (one B=32 forward): "
+          f"{time.perf_counter() - t0:.3f} s, {len(turbox.quant)} entries "
+          f"({n_x} block views, no fused_qconv marker: "
+          f"{not any(k.endswith('fused_qconv') for k in turbox.quant)})")
+    latent = LatentDiffusionProcess(cfg, lat, turbo="int8x")
+    if latent.turbo != "int8":
+        raise AssertionError(f"int8x latent tier {latent.turbo!r}")
+    turbox.sampling(xT=xT, a=a, num_steps=2)  # warm-up
+    per = per_forward(img)
+    torch.cuda.synchronize()
+    reset_launches()
+    Q.int8_dot.launches = 0
+    t0 = time.perf_counter()
+    lats = latent.sampling(gen.manual_seed(16), sampling_number=BATCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    images = turbox.sampling(xT=xT, a=a, num_steps=INT8_STEPS).float()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    dots = Q.int8_dot.launches
+    if not (torch.isfinite(images).all() and torch.isfinite(lats).all()):
+        raise AssertionError("int8x: non-finite output")
+    expect("int8x", launches, {
+        **INT8_LAUNCHES["int8_default"], "adagn": per["adagn"] * INT8_STEPS,
+        "shortcut_fused": 0})
+    if dots != per["int8_dot"] * INT8_STEPS:
+        raise AssertionError(f"int8x: {dots} s8 shortcut products, want "
+                             f"{per['int8_dot'] * INT8_STEPS}")
+    rates["int8x"] = BATCH / (t2 - t1)
+    moved = {k: v for k, v in launches.items() if v}
+    print(f"[int8 slice] int8x B={BATCH}: latents (T={T}, int8 weights) "
+          f"{t1 - t0:.3f} s = {BATCH / (t1 - t0):.2f} latents/s; DDIM-"
+          f"{INT8_STEPS} 64px {t2 - t1:.3f} s = {rates['int8x']:.2f} "
+          f"samples/s against int8_default {rates['int8_default']:.2f} and "
+          f"bf16 {rates['bf16']:.2f} (host clock, synchronised, this call; "
+          f"{smi}); images rel L2 against the bf16 slice: "
+          f"{rel_l2(images, ref):.4f}; K7 launched 0 times; s8 shortcut "
+          f"products (torch._int_mm) {dots} = {per['int8_dot']} a forward; "
+          f"launches {moved}")
+    shortcut_times(turbox, xT, a, smi)
+    profile_steps(lambda: turbox.sampling(xT=xT, a=a, num_steps=2),
+                  f"int8x DDIM, 2 steps, B={BATCH}", smi, top=8)
+    return launches
+
+
+def shortcut_times(proc, xT, a, smi, reps=10):
+    """The int8x shortcut at each shortcut site of one int8x forward at
+    B=BATCH, on that forward's inputs, in CUDA-event ms: the whole s8 form
+    (quant.int8_shortcut: the kernel's fold and quantization, the products,
+    the partial rounding, the dequantization and the residual add), its s8
+    products alone (torch._int_mm), and the bf16 form of the 'int8' tier
+    (torch.addmm's F.linear and the add) on the same block input; the
+    products' bound (s8 pieces and weights read, s32 written, or the int8
+    peak)."""
+    model = proc.model
+    sites = []
+    hooks = [mod.register_forward_hook(
+        lambda m, args, out: sites.append((m, args)))
+        for mod in model.backbone.modules() if isinstance(mod, ShortcutDense)]
+    t = torch.full((BATCH,), T - 1, dtype=torch.long, device=xT.device)
+    Q.load_quant_state(model, proc.quant)
+    try:
+        with torch.no_grad():
+            model(xT, t, a)
+        for hk in hooks:
+            hk.remove()
+        tot = dict(s8=0.0, mm=0.0, bf16=0.0)
+        bnd = Bound()
+        for mod, (x, h, pieces, qx) in sites:
+            qs, sc = qx
+            kq, _ = Q.quantize_weight(mod.weight.t(), (0,))
+            mats, o = [], 0
+            for q in qs:
+                a2 = q.permute(0, 2, 3, 1).reshape(-1, q.shape[1])
+                mats.append((a2.contiguous(), kq[o:o + q.shape[1]]
+                             .contiguous()))
+                o += q.shape[1]
+                m_, k_ = a2.shape
+                bnd.add(2 * m_ * k_ * kq.shape[1],
+                        m_ * k_ + k_ * kq.shape[1] + 4 * m_ * kq.shape[1],
+                        PEAK["int8"])
+            with torch.no_grad():
+                tot["s8"] += cuda_ms(lambda: mod(x, h, pieces, qx), reps)
+                tot["mm"] += cuda_ms(lambda: [torch._int_mm(u, v)
+                                              for u, v in mats], reps)
+                tot["bf16"] += cuda_ms(lambda: mod(x, h, pieces), reps)
+    finally:
+        Q.clear_quant_state(model)
+        for hk in hooks:
+            hk.remove()
+    at_least("s8 shortcut products", tot["mm"], bnd.ms)
+    print(f"[int8x shortcut] {len(sites)} shortcut sites of one forward, "
+          f"B={BATCH}, CUDA events: the s8 form {tot['s8']:.4f} ms, its s8 "
+          f"products alone (torch._int_mm) {tot['mm']:.4f} ms, bound "
+          f"{bnd.ms:.4f} ms ({bnd.by}); the bf16 form (torch.addmm and the "
+          f"add) {tot['bf16']:.4f} ms ({smi})")
+
+
+def subpixel_turns(cfg, img, turbo, xT, a, ref, smi):
+    """The int8 tier's DDIM-25 at B=BATCH on the default route, calibrated
+    and run under INFODIFF_SUBPIXEL_UPSAMPLE=1 (the upsample convs hold no
+    act_absmax and run in bf16, as JAX's _SubpixelUpConv does), against
+    the literal tier ``turbo`` in turns (literal, subpixel, subpixel,
+    literal): samples/s, the images' relative L2 against the literal
+    tier's and bf16's (``ref``, DDIM-25), and exact launches (an int8 conv fewer a forward
+    for each upsample)."""
+    with env_set({SUBPIXEL: "1"}):
+        sub = DiffusionProcess(cfg, img, turbo="int8")
+    n_up = sum(isinstance(m, UpSample) for m in img.backbone.modules())
+    dropped = sorted(set(turbo.quant) - set(sub.quant))
+    if (len(dropped) != n_up or set(sub.quant) - set(turbo.quant)
+            or not all(k.endswith("conv.act_absmax") for k in dropped)):
+        raise AssertionError(f"subpixel calibration sites: {dropped}")
+    procs = {"literal": turbo, "subpixel": sub}
+    rates = {"literal": [], "subpixel": []}
+    out = {}
+    for form in ("literal", "subpixel", "subpixel", "literal"):
+        with env_set({SUBPIXEL: "1" if form == "subpixel" else "0"}):
+            images, dt, n = timed(lambda: procs[form].sampling(
+                xT=xT, a=a, num_steps=SHORT_STEPS))
+        rates[form].append(BATCH / dt)
+        if form not in out:
+            out[form] = (images.float(), n)
+        del images
+    (sub_img, n), (lit_img, n_lit) = out["subpixel"], out["literal"]
+    adagn = per_forward(img)["adagn"] * SHORT_STEPS
+    expect("subpixel_int8", n, {
+        "int8_conv": (84 - n_up) * SHORT_STEPS, "qconv": 0,
+        "attention": 6 * SHORT_STEPS, "latent_traj_int8": 0,
+        "adagn": adagn})
+    expect("literal_int8", n_lit, {"int8_conv": 84 * SHORT_STEPS,
+                                   "qconv": 0, "adagn": adagn})
+    print(f"[subpixel] int8 tier, default route, DDIM-{SHORT_STEPS} "
+          f"B={BATCH}, {n_up} upsample convs unquantized under "
+          f"INFODIFF_SUBPIXEL_UPSAMPLE=1; samples/s in turns literal, "
+          f"subpixel, subpixel, literal: "
+          + ", ".join(f"{r:.2f}" for r in (rates["literal"][0],
+                                           *rates["subpixel"],
+                                           rates["literal"][1]))
+          + f" (host clock, synchronised; {smi}); images rel L2 against the "
+          f"literal int8 tier {rel_l2(sub_img, lit_img):.4f}, against bf16 "
+          f"{rel_l2(sub_img, ref):.4f} (the literal tier "
+          f"{rel_l2(lit_img, ref):.4f}); int8 convs {n['int8_conv']} "
+          f"(literal {n_lit['int8_conv']})")
+    return {"subpixel_int8": n}
+
+
 def _to(args, dev):
-    """A conv's recorded arguments on ``dev`` (tensors, chains, splits)."""
+    """A module's recorded arguments on ``dev`` (tensors, chains, splits,
+    and lists or tuples of them: pieces, an s8 view)."""
     out = []
     for a in args:
         if isinstance(a, _AffineChain):
@@ -2116,17 +2353,34 @@ def _to(args, dev):
                              a.B.to(dev))
         elif isinstance(a, torch.Tensor):
             a = a.to(dev)
+        elif isinstance(a, (list, tuple)):
+            a = type(a)(_to(a, dev))
         out.append(a)
     return out
 
 
+def _record_first(mods, key, sites):
+    """Forward hooks keeping each module's first (arguments, output) on the
+    CPU in ``sites[(key, name)]``; returns the handles."""
+    handles = []
+    for name, mod in mods.items():
+        def record(mod, args, out, k=(key, name)):
+            if k not in sites:
+                sites[k] = (_to(args, "cpu"), _to(out, "cpu")
+                            if isinstance(out, tuple) else out.cpu())
+        handles.append(mod.register_forward_hook(record))
+    return handles
+
+
 def int8_card_vs_cpu(device):
-    """The int8 tier on the card against the CPU: f32, B=2, the same
-    weights, the same quant state (calibrated once on the CPU, carried
-    across), TF32 off. Latents T=1000 with the int8 stream; then every
-    quantized conv of the first DDIM forward on each route, fed on the card
-    the very inputs it had on the CPU; then DDIM-10 run free on each route,
-    beside the CPU's own spread under a 1e-6 change of xT."""
+    """The int8 tiers on the card against the CPU: f32, B=2, the same
+    weights, the same quant states (int8 and int8x, each calibrated once
+    on the CPU, carried across), TF32 off. Latents T=1000 with the int8
+    stream; then every quantized conv of the first DDIM forward on each
+    route, fed on the card the very inputs it had on the CPU, and under
+    int8x also each block's s8 view (bitwise), each s8 shortcut and each
+    s32 product of it (exact); then DDIM-10 run free on each route, beside
+    the CPU's own spread under a 1e-6 change of xT."""
     n = 2
     rng = np.random.RandomState(40)
     lat_xT = torch.from_numpy(rng.randn(n, A_DIM).astype(np.float32))
@@ -2136,54 +2390,70 @@ def int8_card_vs_cpu(device):
         rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
     cx = torch.from_numpy(rng.randn(8, SIZE, SIZE, 3).astype(np.float32))
     ca = torch.from_numpy(rng.randn(8, A_DIM).astype(np.float32))
-    routes = {"int8_default": {},
-              "int8_fused": {"INFODIFF_FORCE_FUSED_QCONV": "1"},
-              "int8_fused_v2": {"INFODIFF_FORCE_FUSED_QCONV": "1",
-                                "INFODIFF_QCONV_V2": "1"}}
+    # route: (environment, tier)
+    routes = {"int8_default": ({}, "int8"),
+              "int8_fused": ({"INFODIFF_FORCE_FUSED_QCONV": "1"}, "int8"),
+              "int8_fused_v2": ({"INFODIFF_FORCE_FUSED_QCONV": "1",
+                                 "INFODIFF_QCONV_V2": "1"}, "int8"),
+              "int8x": ({}, "int8x")}
     cpu_route = lambda r: "int8_fused" if r == "int8_fused_v2" else r  # noqa
-    quant = None
-    outs, sites = {}, {}
+    quant = {}
+    outs, sites, dots = {}, {}, []
+    dot = Q.int8_dot
+
+    def spy(xq, kq):  # the CPU's s8 products of the first int8x forward
+        if len(dots) < n_products:
+            dots.append((xq.clone(), kq.clone()))
+        return dot(xq, kq)
+
     for dev in (torch.device("cpu"), device):
         cfg, img, lat = flagship(torch.float32, dev, seed=30)
-        if quant is None:
-            Q.calibrate(img, (SIZE, SIZE, 3), a_dim=A_DIM, T=T, x=cx, a=ca)
-            quant = Q.quant_state(img)
-        else:
-            Q.load_quant_state(img, quant)
         latents = LatentDiffusionProcess(cfg, lat, turbo="int8").sampling(
             xT=lat_xT.to(dev), noises=noises.to(dev))
         sched = make_schedule(1e-5, 1e-2, T, dev)
         outs[(dev.type, "latents")] = latents.cpu()
         convs = {name: mod for name, mod in img.named_modules()
                  if isinstance(mod, Conv3) and mod.quantize}
-        for route, env in routes.items():
+        views = {name: mod for name, mod in img.named_modules()
+                 if isinstance(mod, _XQuant)}
+        shortcuts = {name: mod for name, mod in img.named_modules()
+                     if isinstance(mod, ShortcutDense)}
+        for route, (env, tier) in routes.items():
             if dev.type == "cpu" and route == "int8_fused_v2":
                 continue  # v2 is a schedule of the card's kernel
+            if tier not in quant:
+                Q.calibrate(img, (SIZE, SIZE, 3), a_dim=A_DIM, T=T, x=cx,
+                            a=ca, mode=tier)
+                quant[tier] = Q.quant_state(img)
+            Q.load_quant_state(img, quant[tier])
             handles = []
-            if dev.type == "cpu":  # record each conv's first call
-                for name, mod in convs.items():
-                    def record(mod, args, out, key=(route, name)):
-                        if key not in sites:
-                            sites[key] = (_to(args, "cpu"), out.cpu())
-                    handles.append(mod.register_forward_hook(record))
-            with env_set(env), torch.no_grad():
-                y = strided_ddim_loop(img, sched, img_xT.to(dev), None,
-                                      latents, num_steps=10)
-                outs[(dev.type, route)] = y.cpu()
-                if dev.type == "cpu" and route == "int8_default":
-                    outs["nudged"] = strided_ddim_loop(
-                        img, sched, img_xT * nudge, None, latents,
-                        num_steps=10)
-                if dev.type != "cpu":
-                    worst = (0.0, "")
-                    for (r, name), (args, want) in sites.items():
-                        if r != cpu_route(route):
-                            continue
-                        got = convs[name](*_to(args, dev))
-                        worst = max(worst, (rel_err(got, want)[1], name))
-                    outs[("layers", route)] = worst
-            for h in handles:
-                h.remove()
+            if dev.type == "cpu":  # record each module's first call
+                handles = _record_first(convs, route, sites)
+                if tier == "int8x":
+                    handles += _record_first(views, "view", sites)
+                    handles += _record_first(shortcuts, "shortcut", sites)
+                    n_products = per_forward(img)["int8_dot"]
+                    Q.int8_dot = spy
+            try:
+                with env_set(env), torch.no_grad():
+                    y = strided_ddim_loop(img, sched, img_xT.to(dev), None,
+                                          latents, num_steps=10)
+                    outs[(dev.type, route)] = y.cpu()
+                    if dev.type == "cpu" and route in ("int8_default",
+                                                       "int8x"):
+                        outs[("nudged", route)] = strided_ddim_loop(
+                            img, sched, img_xT * nudge, None, latents,
+                            num_steps=10)
+                    if dev.type != "cpu":
+                        outs[("layers", route)] = _layer_errors(
+                            sites, cpu_route(route), convs, dev)
+                        if tier == "int8x":
+                            outs["int8x_parts"] = _int8x_parts(
+                                sites, views, shortcuts, dots, dev)
+            finally:
+                Q.int8_dot = dot
+                for h in handles:
+                    h.remove()
         del img, lat
     _, lat_e = rel_err(outs[("cuda", "latents")], outs[("cpu", "latents")])
     layer_e = max(outs[("layers", r)][0] for r in routes)
@@ -2193,22 +2463,161 @@ def int8_card_vs_cpu(device):
     free = "; ".join(
         f"{r} {rel_l2(outs[('cuda', r)], outs[('cpu', cpu_route(r))]):.2e}"
         for r in routes)
-    floor = rel_l2(outs["nudged"], outs[("cpu", "int8_default")])
+    floor = "; ".join(
+        f"{r} {rel_l2(outs[('nudged', r)], outs[('cpu', r)]):.2e}"
+        for r in ("int8_default", "int8x"))
     n_sites = sum(1 for r, _ in sites if r == "int8_default")
-    print(f"[int8 card vs CPU] f32 B={n}, the quant state calibrated on the "
+    n_x = sum(1 for r, _ in sites if r == "int8x")
+    views_equal, n_views, short_e, n_short, dots_exact, n_dots = \
+        outs["int8x_parts"]
+    print(f"[int8 card vs CPU] f32 B={n}, the quant states calibrated on the "
           f"CPU and carried across: latents T={T} (int8 stream) max abs "
           f"error over max abs {lat_e:.2e}; each of the {n_sites} quantized "
-          f"convs of the first DDIM forward fed the CPU's inputs, max abs "
-          f"error over max abs: {per_layer} (bar {TOL['slice_int8']:.0e}: "
-          f"an f32 ulp can flip an int8 unit). DDIM-10 run free, relative "
-          f"L2 card vs CPU: {free}; the CPU against itself with xT changed "
-          f"by 1e-6: {floor:.2e} (no bar: int8 rounding carries an ulp-level "
-          f"difference into a whole int8 unit, and the flips spread through "
-          f"the later layers and steps)")
-    for what, e in (("latents", lat_e), ("quantized convs", layer_e)):
+          f"convs ({n_x} under int8x) of the first DDIM forward fed the "
+          f"CPU's inputs, max abs error over max abs: {per_layer}; int8x: "
+          f"the {n_views} block views given the CPU's inputs bitwise equal: "
+          f"{views_equal}; the {n_short} s8 shortcuts worst {short_e:.2e}; "
+          f"the {n_dots} s32 products (torch._int_mm) exact: {dots_exact} "
+          f"(bar {TOL['slice_int8']:.0e}: an f32 ulp can flip an int8 "
+          f"unit). DDIM-10 run free, relative L2 card vs CPU: {free}; the "
+          f"CPU against itself with xT changed by 1e-6: {floor} (no bar: "
+          f"int8 rounding carries an ulp-level difference into a whole int8 "
+          f"unit, and the flips spread through the later layers and steps)")
+    for what, e in (("latents", lat_e), ("quantized convs", layer_e),
+                    ("int8x shortcuts", short_e)):
         if not e <= TOL["slice_int8"]:
             raise AssertionError(f"int8 card vs CPU {what}: {e:.3e} over "
                                  f"{TOL['slice_int8']:.0e}")
+    if not (views_equal and dots_exact and n_views and n_dots):
+        raise AssertionError(f"int8x card vs CPU: views bitwise "
+                             f"{views_equal} ({n_views}), s32 products "
+                             f"exact {dots_exact} ({n_dots})")
+
+
+def _layer_errors(sites, route, convs, dev):
+    """(worst max abs error over max abs, its conv) of ``route``'s
+    recorded convs run on ``dev`` on the CPU's inputs."""
+    worst = (0.0, "")
+    for (r, name), (args, want) in sites.items():
+        if r == route:
+            got = convs[name](*_to(args, dev))
+            worst = max(worst, (rel_err(got, want)[1], name))
+    return worst
+
+
+def _int8x_parts(sites, views, shortcuts, dots, dev):
+    """The int8x parts on ``dev`` on the CPU's inputs: (every s8 view
+    bitwise the CPU's, how many, the worst s8 shortcut's max abs error
+    over max abs, how many, every s32 product exact, how many)."""
+    equal, n_views, worst, n_short = True, 0, 0.0, 0
+    for (kind, name), (args, want) in sites.items():
+        if kind == "view":
+            qs, s = views[name](*_to(args, dev))
+            equal &= torch.equal(s.cpu(), want[1]) and all(
+                torch.equal(q.cpu(), w) for q, w in zip(qs, want[0]))
+            n_views += 1
+        elif kind == "shortcut":
+            got = shortcuts[name](*_to(args, dev))
+            worst = max(worst, rel_err(got, want)[1])
+            n_short += 1
+    exact = all(torch.equal(Q.int8_dot(xq.to(dev), kq.to(dev)).cpu(),
+                            Q.int8_dot_reference(xq, kq))
+                for xq, kq in dots)
+    return equal, n_views, worst, n_short, exact, len(dots)
+
+
+def int8x_batch_one(device):
+    """int8x at batch 1 on a 32px dataset, as ``--mode disentangle`` runs
+    it: dsprites' InfoDiff (ch 32, ch_mult (1,2,2,2), so the 4x4 level's
+    shortcut products have 16 rows, which torch._int_mm takes only padded)
+    on the card, f32: the runner's int8x encoding of one image (the
+    encoder calibrated on it), then ``reverse_sampling`` at T=10 through
+    the UNet calibrated by the process. Every s8 product of the run, held
+    exact against int8_dot_reference on the CPU; the 16-row ones counted;
+    the encoding finite and of the image's shape."""
+    cfg = Config(model="diff", dataset="dsprites", diffusion_steps=10,
+                 deterministic=True, batch_size=1,
+                 turbo="int8x").with_dataset_config()
+    img = init_weights_(build_model(cfg, dtype=torch.float32,
+                                    device=device), 41).eval()
+    proc = DiffusionProcess(cfg, img)
+    x0 = torch.from_numpy(np.random.RandomState(42).randn(
+        1, 32, 32, 1).astype(np.float32)).to(device)
+    products, dot = [], Q.int8_dot
+
+    def spy(xq, kq):
+        y = dot(xq, kq)
+        products.append((xq.cpu(), kq.cpu(), y.cpu()))
+        return y
+
+    # int8_dot counts its launches on the name it is called by
+    spy.launches = 0
+    forwards = {"backbone": 0, "encoder": 0}
+    hooks = [getattr(img, k).register_forward_hook(
+        lambda *_, k=k: forwards.__setitem__(k, forwards[k] + 1))
+        for k in forwards]
+    Q.int8_dot = spy
+    try:
+        with torch.no_grad():
+            a = runner._encode_batch(cfg, img, x0)
+            xT = proc.reverse_sampling(x0, a)
+        torch.cuda.synchronize()
+    finally:
+        Q.int8_dot = dot
+        for h in hooks:
+            h.remove()
+    per = {k: sum(m.xq.n_pieces for m in getattr(img, k).modules()
+                  if isinstance(m, _ResBlockBase) and m.shortcut is not None)
+           for k in forwards}
+    # the encoder's calibrating forward observes and makes no product (the
+    # process calibrated the UNet before the hooks)
+    want = (per["backbone"] * forwards["backbone"]
+            + per["encoder"] * (forwards["encoder"] - 1))
+    exact = all(torch.equal(y, Q.int8_dot_reference(xq, kq))
+                for xq, kq, y in products)
+    small = sum(xq.numel() // xq.shape[-1] <= 16 for xq, _, _ in products)
+    print(f"[int8x batch 1] dsprites 32px (ch 32, ch_mult (1,2,2,2)), f32, "
+          f"on the card: the runner's int8x encoding, then reverse_sampling "
+          f"T=10; forwards {forwards} (the encoder's calibration included), "
+          f"{len(products)}"
+          f" s8 products (want {want}; a forward {per}), {spy.launches} "
+          f"torch._int_mm launches, {small} of them at 16 rows (padded to "
+          f"32), all exact against int8_dot_reference: {exact}; xT "
+          f"{tuple(xT.shape)}")
+    if not (exact and small and torch.isfinite(xT).all()
+            and tuple(xT.shape) == (1, 32, 32, 1)
+            and len(products) == spy.launches == want):
+        raise AssertionError("int8x batch 1: products exact, 16-row "
+                             "products, finite encoding, product count")
+    int8_dot_rows(device)
+
+
+def int8_dot_rows(device, k=64, n=64):
+    """``quant.int8_dot`` on the card at every row count 1-96 (K = N =
+    64), exact against int8_dot_reference; beside it the row counts that
+    a bare ``torch._int_mm`` refuses (which int8_dot pads)."""
+    gen = torch.Generator().manual_seed(43)
+    refused, wrong = [], []
+    for m in range(1, 97):
+        xq = torch.randint(-127, 128, (m, k), generator=gen,
+                           dtype=torch.int8)
+        kq = torch.randint(-127, 128, (k, n), generator=gen,
+                           dtype=torch.int8)
+        want = Q.int8_dot_reference(xq, kq)
+        if not torch.equal(Q.int8_dot(xq.to(device), kq.to(device)).cpu(),
+                           want):
+            wrong.append(m)
+        try:
+            torch._int_mm(xq.to(device), kq.to(device))
+            torch.cuda.synchronize()
+        except RuntimeError:
+            refused.append(m)
+    print(f"[int8_dot rows] K = N = {k}: exact at every row count 1-96 but "
+          f"{wrong}; a bare torch._int_mm refuses {len(refused)} of them: "
+          f"{refused} (those int8_dot pads to a multiple of 32)")
+    if wrong:
+        raise AssertionError(f"int8_dot at rows {wrong}: not exact")
+
 
 # ------------------------------------- the vanilla / two-phase / VAE slice
 
@@ -2217,6 +2626,9 @@ SLICE_BATCH = {"two_phase": 32, "ddim": 64, "reconstruct": 32, "latent": 128,
                "vae": 128, "kernels": 64}
 DDIM_STEPS = 100
 SPLIT_STEP = 500
+# the depth of phase 13's two DDPM chains (two-phase sampling and the
+# reverse chain of reconstruct), cut from T = 1000 to fit the run's limit
+CHAIN_T, CHAIN_SPLIT = 100, 50
 # phase 14's depth cut (the widths stay full)
 SMALL_T, SMALL_SPLIT = 20, 10
 K6_ROUTE = {"INFODIFF_ENABLE_FUSED_SHORTCUT": "1"}
@@ -2692,7 +3104,8 @@ def slice_paths(device, smi, sites):
     path's launch counts."""
     bf16 = torch.bfloat16
     cfg, img, lat = flagship(bf16, device)
-    cfg = dataclasses.replace(cfg, split_step=SPLIT_STEP)
+    chain = dataclasses.replace(cfg, diffusion_steps=CHAIN_T,
+                                split_step=CHAIN_SPLIT)
     vcfg, van = slice_model("vanilla", bf16, device, seed=2)
     _, vae = slice_model("vae", bf16, device, seed=3)
     gen = torch.Generator(device=device)
@@ -2706,12 +3119,12 @@ def slice_paths(device, smi, sites):
     for model, c in ((img, cfg), (van, vcfg)):  # warm-up: cuDNN plans
         DiffusionProcess(c, model).sampling(gen.manual_seed(0), B,
                                             num_steps=2)
-    two = TwoPhaseDiffusionProcess(cfg, img, van)
+    two = TwoPhaseDiffusionProcess(chain, img, van)
     out, dt, n = timed(lambda: two.sampling(gen.manual_seed(31), B))
-    report("two_phase", out, B, dt, n, smi)
-    uncond = SPLIT_STEP + 1
+    report(f"two_phase T={CHAIN_T}", out, B, dt, n, smi)
+    uncond = CHAIN_SPLIT + 1
     expect("two_phase", n, {
-        "attention": (T - uncond) * (attn_lvl + attn_mid),
+        "attention": (CHAIN_T - uncond) * (attn_lvl + attn_mid),
         "attention_c256": uncond * attn_lvl, "attention_c512": uncond,
         "shortcut_fused": 0})
     by_path["two_phase"] = n
@@ -2761,12 +3174,12 @@ def slice_paths(device, smi, sites):
     B = SLICE_BATCH["reconstruct"]
     x0 = torch.from_numpy(np.random.RandomState(34).uniform(
         -1, 1, (B, SIZE, SIZE, 3)).astype(np.float32)).to(device)
-    pipe = InfoDiffusionPipeline(cfg, img)
+    pipe = InfoDiffusionPipeline(chain, img)
     out, dt, n = timed(lambda: pipe.reconstruct(x0, steps=DDIM_STEPS))
-    report("reconstruct", out, B, dt, n, smi)
+    report(f"reconstruct T={CHAIN_T}", out, B, dt, n, smi)
     # the Encoder attends at level 2 (C=128) too: 5 + 1 per encode
     expect("reconstruct", n, {
-        "attention": (1 + T - 2 + DDIM_STEPS) * (attn_lvl + attn_mid),
+        "attention": (1 + CHAIN_T - 2 + DDIM_STEPS) * (attn_lvl + attn_mid),
         "shortcut_fused": 0})
     by_path["reconstruct"] = n
 
@@ -2801,7 +3214,7 @@ def slice_paths(device, smi, sites):
 
 def slice_card_vs_cpu(device):
     """Phase 14: the new paths on the card against the CPU, f32, B=2, the
-    same weights, inputs and noises; T=20, split 10."""
+    same weights, inputs and noises; T=10, split 5."""
     n = 2
     rng = np.random.RandomState(60)
     xT = torch.from_numpy(rng.randn(n, SIZE, SIZE, 3).astype(np.float32))
@@ -4064,6 +4477,7 @@ def main() -> None:
             torch.zeros(1, A_DIM, device=device))
         gn_sites = adagn_rate.gn_sites(img32, forward)
         chainless, fused = qconv_sites(img32, forward)
+        x_sites = norm1_sites(img32, forward)
         del img32
     if run(3):
         check_adagn(gn_sites, device, 10, results)
@@ -4103,12 +4517,18 @@ def main() -> None:
         check_qconv(fused, device, 5, results)
         check_latent_traj_int8(flagship(torch.bfloat16, device)[2], device,
                                results)
+        print(f"[K1 adagn] int8x: each ResBlock's norm1 reads its s8 view "
+              f"dequantized in f32 in the bf16 model, so K1 takes f32 input "
+              f"at {len(x_sites)} sites, B={BATCH}:")
+        check_adagn(x_sites, device, 10, results, line=False,
+                    dtypes={"f32": torch.float32}, graph_dtype=torch.float32)
         torch.cuda.empty_cache()
     if run(10):
         by_path.update(int8_slice(device, smi))
         torch.cuda.empty_cache()
     if run(11):
         int8_card_vs_cpu(device)
+        int8x_batch_one(device)
     if run(12) or run(13):
         sites = forward_sites(device)
     if run(12):

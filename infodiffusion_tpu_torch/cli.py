@@ -7,7 +7,7 @@ The flags, defaults, required markers and choices are the JAX CLI's (the
 reference's ``run.py`` flags plus the JAX package's own), so every
 ``scripts/*.sh`` line and every ``run.py`` command runs unchanged. The run
 goes to the card; ``INFODIFF_FORCE_CPU=1`` runs it on the CPU, and with
-neither it raises. ``--turbo int8x`` is refused by the ``Config``.
+neither it raises.
 
 Training across devices runs one process a device under torchrun:
 
@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 
 from infodiffusion_tpu_torch.config import Config, DATASETS, MODELS, MODES, PRIORS
 
-# the JAX package's turbo tiers; the port runs 'int8' and refuses 'int8x'
+# the JAX package's turbo tiers
 TURBO_CHOICES = ("", "off", "int8", "int8x")
 
 
@@ -128,9 +128,10 @@ def build_parser(require_mode: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--turbo", choices=list(TURBO_CHOICES), default="",
                    help="inference tier of the image samplers: 'int8' runs "
                         "the UNet conv bodies W8A8 with scales calibrated "
-                        "when the sampler is built; 'int8x' is not ported; "
-                        "'' falls through to $INFODIFF_TURBO, 'off' forces "
-                        "it off")
+                        "when the sampler is built; 'int8x' also reads "
+                        "each ResBlock's input through an s8 view (norm1 "
+                        "and the 1x1 shortcut); '' falls through to "
+                        "$INFODIFF_TURBO, 'off' forces it off")
     p.add_argument("--async_ckpt", action="store_true",
                    help="write checkpoints on a background thread")
     p.add_argument("--keep_checkpoints", type=int, default=None,

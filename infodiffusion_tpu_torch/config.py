@@ -135,9 +135,6 @@ class Config:
             )
         from infodiffusion_tpu_torch.ops.quant import MODES as _TURBO_MODES
 
-        if self.turbo == "int8x":
-            raise ValueError("turbo 'int8x' is not ported (ROADMAP.md, 'do "
-                             "not port'); use 'int8'")
         if self.turbo not in ("", "off") + _TURBO_MODES:
             raise ValueError(
                 f"turbo must be '', 'off' or one of {_TURBO_MODES}, "

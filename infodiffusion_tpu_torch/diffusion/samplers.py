@@ -17,14 +17,15 @@ per-forward route (K5) is asked for.
 - ``DiffusionProcess``: the image sampler over an InfoDiff (conditioned on
   ``a``) or a vanilla ``Diff`` (``cfg.model == 'vanilla'``), ``sampling``
   and ``reverse_sampling`` (with the reference's D13 quirk behind
-  ``cfg.reverse_reference_quirk``), and the int8 turbo tier
-  (``turbo='int8'``: W8A8 UNet conv bodies).
+  ``cfg.reverse_reference_quirk``), and the turbo tiers
+  (``turbo='int8'``: W8A8 UNet conv bodies; ``'int8x'``: also each
+  ResBlock's input read through an s8 view).
 - ``TwoPhaseDiffusionProcess``: an InfoDiff and a vanilla Diff, sampling
   in two phases and reverse sampling through the InfoDiff, both models on
-  the int8 tier under ``turbo='int8'``.
+  the turbo tier under ``turbo=``.
 - ``LatentDiffusionProcess``: sampling and reverse sampling of the latent
   prior on the route ``latent_route`` picks: the trajectory kernel K4
-  (``turbo='int8'`` streams int8 weights), or, with
+  (``turbo='int8'`` or ``'int8x'`` streams int8 weights), or, with
   ``INFODIFF_ENABLE_FUSED_LATENT=1``, ``sample_loop`` /
   ``reverse_sample_loop`` with one K5 forward per step, or, where the
   cluster core does not take a_dim or the kernels are switched off, those
@@ -236,7 +237,7 @@ def _device_of(model: torch.nn.Module) -> torch.device:
 def _resolve_turbo(cfg, turbo: Optional[str]) -> str:
     """The turbo tier: the argument, else ``cfg.turbo``, else
     ``INFODIFF_TURBO``. '' falls through; 'off' stops the fall-through.
-    Returns '' or a ported tier; 'int8x' and unknown names raise."""
+    Returns '' or a tier of ``quant.MODES``; unknown names raise."""
     mode = turbo if turbo is not None else (
         getattr(cfg, "turbo", "") or q8.turbo_mode())
     if mode in ("", "off"):
@@ -329,7 +330,8 @@ class DiffusionProcess:
 
     ``turbo='int8'`` (or ``cfg.turbo``, or ``INFODIFF_TURBO``) calibrates
     the activation scales once, here (``ops.quant.calibrate``), and the
-    UNet's conv bodies then run W8A8. The process keeps the quant state
+    UNet's conv bodies then run W8A8; ``'int8x'`` calibrates the blocks'
+    input views as well. The process keeps the quant state
     and installs it on the model's modules for the length of each
     ``sampling`` / ``reverse_sampling`` call only, so the model is left
     without it (training and other processes over the same model never see
@@ -413,11 +415,11 @@ class TwoPhaseDiffusionProcess:
     ``cfg.two_phase_reference_quirk``); ``reverse_sampling`` encodes through
     ``model1`` (D13 quirk as in ``DiffusionProcess``).
 
-    ``turbo='int8'`` calibrates both models here, ``model1`` with ``a`` and
-    ``model2`` without, as the JAX process does, and keeps both quant
-    states; each is installed on its model only while that model's phase
-    runs. ``shape`` (C, H, W) overrides ``cfg.shape``; ``group`` as in
-    ``DiffusionProcess``."""
+    ``turbo='int8'`` (or ``'int8x'``) calibrates both models here,
+    ``model1`` with ``a`` and ``model2`` without, as the JAX process does,
+    and keeps both quant states; each is installed on its model only while
+    that model's phase runs. ``shape`` (C, H, W) overrides ``cfg.shape``;
+    ``group`` as in ``DiffusionProcess``."""
 
     def __init__(self, cfg, model1: torch.nn.Module, model2: torch.nn.Module,
                  turbo: Optional[str] = None, shape=None, group=None):
@@ -505,6 +507,11 @@ class LatentDiffusionProcess:
         self.sched = make_schedule(cfg.beta1, cfg.betaT, cfg.diffusion_steps,
                                    self.device)
         self.turbo = _resolve_turbo(cfg, turbo)
+        # the latent leg's one quantized form is K4's int8 weight stream;
+        # 'int8x' (a residual-read form of the image UNet) has none of its
+        # own, so it runs 'int8', as JAX normalizes it
+        if self.turbo == "int8x":
+            self.turbo = "int8"
         self.route = "torch"
         if fused_latent_supported(model.backbone, cfg.a_dim):
             self.route = latent_route(

@@ -106,10 +106,12 @@ def flax_param_tree(module: torch.nn.Module, leaf) -> dict:
 
 
 def from_jax_quant(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
-    """Carry a Flax ``variables['quant']`` tree (the int8 tier's calibrated
-    ``act_absmax`` entries and ``fused_qconv`` markers) into ``module``'s
-    quant state, as :func:`from_jax_params` carries params. Strict: the
-    tree's ``act_absmax`` entries are exactly the module's quantized convs,
+    """Carry a Flax ``variables['quant']`` tree (the turbo tier's calibrated
+    ``act_absmax`` entries, int8x's ``x_absmax`` and the ``fused_qconv``
+    markers) into ``module``'s quant state, as :func:`from_jax_params`
+    carries params. Strict: the tree's ``act_absmax`` entries are exactly
+    the module's quantized convs (as ``INFODIFF_SUBPIXEL_UPSAMPLE`` now
+    sets them), an ``x_absmax`` tree has one under every ResBlock's ``xq``,
     every marker lands on a norm that can hold one, and every shape
     matches. The module's earlier quant state is dropped. Returns
     ``module``."""
@@ -127,6 +129,8 @@ def from_jax_quant(tree: Mapping, module: torch.nn.Module) -> torch.nn.Module:
     walk("", tree)
     sites = q8.quant_sites(module)
     want = {k for k in sites if k.endswith("act_absmax")}
+    if any(k.endswith("x_absmax") for k in flat):  # the int8x tier
+        want |= {k for k in sites if k.endswith("x_absmax")}
     missing = sorted(want - set(flat))
     unexpected = sorted(set(flat) - set(sites))
     if missing or unexpected:

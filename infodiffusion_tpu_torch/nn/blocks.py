@@ -22,7 +22,16 @@ runs W8A8 (``int8_conv``); during calibration it observes its input. A
 norm marked ``fused_qconv`` by calibration hands its conv an
 ``_AffineChain`` when the fused kernel is on (``use_fused_qconv``) and the
 call is deterministic: the conv then runs K7 (``ops/cuda/qconv.py``) on
-the unnormalized pieces.
+the unnormalized pieces. Under ``'int8x'`` each ResBlock's ``xq`` holds
+the s8 view of its input pieces, which norm1 reads dequantized in f32 and
+the 1x1 shortcut reads as int8 (``quant.int8_shortcut``).
+
+``INFODIFF_SUBPIXEL_UPSAMPLE=1`` (read at call time) selects JAX's
+``_SubpixelUpConv``: the same function as the literal upsample conv, which
+JAX runs unquantized in the int8 tiers. The port keeps the literal conv
+(the four-phase form measured slower on the H100, PERF.md) and runs it in
+the model dtype under the variable (``Conv3.quantized``), so calibration
+gives JAX's sites.
 
 ``INFODIFF_REMAT=1`` (read at call time, as the JAX UNet reads it) runs
 each ResBlock of a UNet skeleton under ``torch.utils.checkpoint``
@@ -210,8 +219,16 @@ class Conv3(nn.Module):
     def _hwio(self) -> torch.Tensor:
         return self.weight.permute(2, 3, 1, 0)
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the int8 tiers quantize this conv: ``quantize``, except
+        the upsample conv under ``INFODIFF_SUBPIXEL_UPSAMPLE=1``, which
+        runs in the model dtype and holds no ``act_absmax``, as JAX's
+        ``_SubpixelUpConv`` does."""
+        return self.quantize and not (self.repeat > 1 and subpixel_upsample())
+
     def _turbo(self) -> bool:
-        return (self.quantize and self.act_absmax is not None
+        return (self.quantized and self.act_absmax is not None
                 and not q8.calib_mode())
 
     def _fused(self, chain: _AffineChain) -> torch.Tensor:
@@ -224,7 +241,7 @@ class Conv3(nn.Module):
             if self._turbo() and self.stride == 1 and self.repeat == 1:
                 return self._fused(x)
             x = _materialize_chain(x, self.dtype)
-        if self.quantize and q8.calib_mode():
+        if self.quantized and q8.calib_mode():
             q8.observe_absmax(self, x)
         elif self._turbo():
             return self._int8(x)
@@ -296,14 +313,21 @@ class PieceConv3(Conv3):
 
 class ShortcutDense(Dense):
     """The ResBlock 1x1 shortcut as a Dense over the channel axis;
-    ``forward(x, residual, pieces)`` returns ``residual + dense(x)``
+    ``forward(x, residual, pieces, qx)`` returns ``residual + dense(x)``
     (NCHW), ``x`` being the block input and ``pieces`` its skip-concat
     pieces (None for one piece). It stays in the model dtype in the int8
-    tier. On the K6 route (``use_fused_shortcut``) it is one fused pass
-    over the pieces, rounded once."""
+    tier. Given the int8x tier's s8 view ``qx`` of the pieces it is the s8
+    product ``quant.int8_shortcut``, and K6 is not taken. On the K6 route
+    (``use_fused_shortcut``) it is one fused pass over the pieces, rounded
+    once."""
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
-                pieces=None) -> torch.Tensor:
+                pieces=None, qx=None) -> torch.Tensor:
+        if qx is not None:
+            qs, s = qx
+            return residual + _nchw(q8.int8_shortcut(
+                ([_nhwc(q) for q in qs], s), self.weight.t(), self.bias,
+                self.dtype))
         plist = list(pieces) if pieces is not None else [x]
         if (self.tp is None and use_fused_shortcut(residual)
                 and fused_shortcut_supported(
@@ -352,6 +376,26 @@ class _GNParams(nn.Module):
         return _nchw(adagn(_nhwc(x), _GROUPS, self.weight, self.bias, films))
 
 
+class _XQuant(nn.Module):
+    """The int8x tier's s8 view of a ResBlock's input, one per block
+    (``xq``), holding ``x_absmax`` (n_pieces,). Under ``'int8x'``
+    calibration it observes the raw input pieces; given ``x_absmax`` it
+    returns ``quant.quantize_x_pieces`` of them, else None (the
+    ``'int8'`` path)."""
+
+    def __init__(self, n_pieces: int):
+        super().__init__()
+        self.n_pieces = n_pieces
+        self.register_buffer("x_absmax", None, persistent=False)
+
+    def forward(self, pieces):
+        if q8.calib_mode() == "int8x":
+            q8.observe_absmax(self, pieces, name="x_absmax")
+        elif self.x_absmax is not None:
+            return q8.quantize_x_pieces(pieces, self.x_absmax)
+        return None
+
+
 def _as_pieces(x):
     """(pieces or None, the concatenated input)."""
     if isinstance(x, (tuple, list)):
@@ -361,17 +405,27 @@ def _as_pieces(x):
 
 class _ResBlockBase(nn.Module):
     """What the three ResBlocks share: norm1-SiLU-conv1 over the input or
-    the skip-concat pieces, the SiLU-dropout-conv stages after it and the
-    shortcut epilogue."""
+    the skip-concat pieces (under int8x over their s8 view, dequantized in
+    f32), the SiLU-dropout-conv stages after it and the shortcut
+    epilogue."""
 
     def _stage1(self, x, pieces, deterministic):
+        """(conv1's output, the s8 view or None)."""
+        xq = self.xq(pieces if pieces is not None else [x])
+        if xq is not None:
+            qs, s = xq
+            deq = [q.to(torch.float32) * s[i] for i, q in enumerate(qs)]
+            if pieces is None:
+                x = deq[0]
+            else:
+                pieces, x = deq, torch.cat(deq, dim=1)
         h = self.norm1(x, deterministic=deterministic, pieces=pieces)
         if isinstance(h, _AffineChain):
-            return self.conv1(h)
+            return self.conv1(h), xq
         h = F.silu(h)
         if pieces is not None:
-            return self.conv1(h, [p.shape[1] for p in pieces])
-        return self.conv1(h)
+            return self.conv1(h, [p.shape[1] for p in pieces]), xq
+        return self.conv1(h), xq
 
     @staticmethod
     def _stage_n(norm, conv, h, films, deterministic, generator):
@@ -380,8 +434,8 @@ class _ResBlockBase(nn.Module):
             return conv(h)
         return conv(dropout(F.silu(h), DROPOUT, deterministic, generator))
 
-    def _epilogue(self, x, h, pieces):
-        h = (self.shortcut(x, h, pieces) if self.shortcut is not None
+    def _epilogue(self, x, h, pieces, xq):
+        h = (self.shortcut(x, h, pieces, xq) if self.shortcut is not None
              else h + x)
         return self.attn(h) if self.attn is not None else h
 
@@ -396,6 +450,7 @@ class ResBlock(_ResBlockBase):
                  attn: bool = False, dtype: torch.dtype = torch.float32,
                  skip_concat: bool = False):
         super().__init__()
+        self.xq = _XQuant(2 if skip_concat else 1)
         self.norm1 = _GNParams(in_ch, out_ch)
         self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
                                                             dtype)
@@ -412,13 +467,13 @@ class ResBlock(_ResBlockBase):
     def forward(self, x, temb: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pieces, x = _as_pieces(x)
-        h = self._stage1(x, pieces, deterministic)
+        h, xq = self._stage1(x, pieces, deterministic)
         t_scale, t_shift = self.temb_proj(F.silu(temb)).chunk(2, dim=-1)
         h = self._stage_n(self.norm2, self.conv2, h, ((t_scale, t_shift),),
                           deterministic, generator)
         h = self._stage_n(self.norm3, self.conv3, h, (), deterministic,
                           generator)
-        return self._epilogue(x, h, pieces)
+        return self._epilogue(x, h, pieces, xq)
 
 
 class AuxResBlock(_ResBlockBase):
@@ -431,6 +486,7 @@ class AuxResBlock(_ResBlockBase):
                  attn: bool = False, dtype: torch.dtype = torch.float32,
                  skip_concat: bool = False):
         super().__init__()
+        self.xq = _XQuant(2 if skip_concat else 1)
         self.norm1 = _GNParams(in_ch, out_ch)
         self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
                                                             dtype)
@@ -449,7 +505,7 @@ class AuxResBlock(_ResBlockBase):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pieces, x = _as_pieces(x)
-        h = self._stage1(x, pieces, deterministic)
+        h, xq = self._stage1(x, pieces, deterministic)
         t_scale, t_shift = self.temb_proj(F.silu(temb)).chunk(2, dim=-1)
         a_scale, a_shift = self.aemb_proj(F.silu(aemb)).chunk(2, dim=-1)
         h = self._stage_n(self.norm2, self.conv2, h,
@@ -457,7 +513,7 @@ class AuxResBlock(_ResBlockBase):
                           deterministic, generator)
         h = self._stage_n(self.norm3, self.conv3, h, (), deterministic,
                           generator)
-        return self._epilogue(x, h, pieces)
+        return self._epilogue(x, h, pieces, xq)
 
 
 class EncoderResBlock(_ResBlockBase):
@@ -468,6 +524,7 @@ class EncoderResBlock(_ResBlockBase):
                  dtype: torch.dtype = torch.float32,
                  skip_concat: bool = False):
         super().__init__()
+        self.xq = _XQuant(2 if skip_concat else 1)
         self.norm1 = _GNParams(in_ch, out_ch)
         self.conv1 = (PieceConv3 if skip_concat else Conv3)(in_ch, out_ch,
                                                             dtype)
@@ -481,10 +538,10 @@ class EncoderResBlock(_ResBlockBase):
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pieces, x = _as_pieces(x)
-        h = self._stage1(x, pieces, deterministic)
+        h, xq = self._stage1(x, pieces, deterministic)
         h = self._stage_n(self.norm2, self.conv2, h, (), deterministic,
                           generator)
-        return self._epilogue(x, h, pieces)
+        return self._epilogue(x, h, pieces, xq)
 
 
 class DownSample(nn.Module):
@@ -498,8 +555,16 @@ class DownSample(nn.Module):
         return self.conv(x)
 
 
+def subpixel_upsample() -> bool:
+    """``INFODIFF_SUBPIXEL_UPSAMPLE=1``, read at call time, as JAX reads
+    it: the upsample conv runs unquantized (``Conv3.quantized``)."""
+    return os.environ.get("INFODIFF_SUBPIXEL_UPSAMPLE") == "1"
+
+
 class UpSample(nn.Module):
-    """Nearest x2, then a 3x3 conv."""
+    """Nearest x2, then a 3x3 conv (``Conv3(repeat=2)``); under
+    ``INFODIFF_SUBPIXEL_UPSAMPLE=1`` the conv runs in the model dtype in
+    every tier."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()

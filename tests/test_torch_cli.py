@@ -139,11 +139,15 @@ def test_no_card_without_force_cpu_raises(monkeypatch):
     assert prunner.resolve_device().type == "cpu"
 
 
-def test_turbo_int8x_is_refused():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pcli.parse_args(shlex.split(RECIPE[0]) + ["--turbo", "int8x"])
-    assert pcli.parse_args(shlex.split(RECIPE[0]) + [
-        "--turbo", "int8"]).turbo == "int8"
+def test_turbo_int8x_flag():
+    """``--turbo int8x`` parses to the tier, as JAX's
+    test_cli_turbo_int8x_flag has it; an unknown tier is argparse's
+    error."""
+    for tier in ("int8x", "int8"):
+        assert pcli.parse_args(shlex.split(RECIPE[0]) + [
+            "--turbo", tier]).turbo == tier
+    with pytest.raises(SystemExit):
+        pcli.parse_args(shlex.split(RECIPE[0]) + ["--turbo", "fp4"])
 
 
 @pytest.mark.parametrize("mode,batch", [("disentangle", 1),
