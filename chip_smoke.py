@@ -4143,7 +4143,7 @@ def reference_path(device, smi, work):
     import importlib.util
     import shutil
 
-    from infodiffusion_tpu_torch import cli, interop, runner
+    from infodiffusion_tpu_torch import cli, interop, runner, tracing
     from infodiffusion_tpu_torch.data import native as NAT
     from infodiffusion_tpu_torch.data.datasets import ImageFolderDataset
     from infodiffusion_tpu_torch.examples import generate, traverse
@@ -4222,13 +4222,13 @@ def reference_path(device, smi, work):
     cwd = os.getcwd()
     try:
         os.chdir(work)
-        served = dict(NAT.counts)
+        served = dict(tracing.counts)
         stage("train", lambda: cli.main(common + [
             "--mode", "train", "-e", "1", "--save_epochs", "1"]))
-        n_img = NAT.counts["decoded"] - served.get("decoded", 0)
-        n_bad = NAT.counts["failed"] - served.get("failed", 0)
-        dec_s = NAT.counts["decode_s"] - served.get("decode_s", 0.0)
-        n_pil = NAT.counts["pil"] - served.get("pil", 0)
+        n_img = tracing.counts["decoded"] - served.get("decoded", 0)
+        n_bad = tracing.counts["failed"] - served.get("failed", 0)
+        dec_s = tracing.counts["decode_s"] - served.get("decode_s", 0.0)
+        n_pil = tracing.counts["pil"] - served.get("pil", 0)
         if (n_img, n_bad, n_pil) != (CLI_N, 0, 0):
             raise AssertionError(f"the native batcher served {n_img} images "
                                  f"({n_bad} failed, {n_pil} through PIL) "
@@ -4318,7 +4318,7 @@ def reference_path(device, smi, work):
                     or not np.isfinite(rows[0]).all():
                 raise AssertionError("examples.traverse's row")
 
-        written = NAT.counts["written"]
+        written = tracing.counts["written"]
         writers = dict(runner.FID_WRITERS)
         stage("eval_fid", lambda: cli.main(common + [
             "--mode", "eval_fid", "-e", str(REF_EPOCH), "--is_latent",
@@ -4328,10 +4328,10 @@ def reference_path(device, smi, work):
         by = {k: runner.FID_WRITERS[k] - writers.get(k, 0)
               for k in ("native", "imaging")}
         if by != {"native": 1, "imaging": 0} \
-                or NAT.counts["written"] - written != CLI_BATCH \
+                or tracing.counts["written"] - written != CLI_BATCH \
                 or len(os.listdir(fid_dir)) != CLI_BATCH:
             raise AssertionError(f"eval_fid's PNGs: writers {by}, native "
-                                 f"{NAT.counts['written'] - written}")
+                                 f"{tracing.counts['written'] - written}")
         print(f"[reference] converter .pth -> model-{REF_EPOCH} (both models) "
               f"{secs['convert']:.2f} s; examples.generate "
               f"({REF_EXAMPLE_N} at DDIM-{CLI_STEPS}) pixels equal the "

@@ -17,7 +17,7 @@ card's machine) a failed slot raises an IOError naming the file. Without
 the native library every image goes through PIL, as in the JAX package,
 except where a card is visible: there a library that did not build raises
 (``INFODIFF_DISABLE_NATIVE=1`` asks for PIL). Every image PIL decodes is
-counted in ``native.counts["pil"]``.
+counted in ``tracing.counts["pil"]``.
 ``drop_last`` everywhere (``loader.py``).
 """
 
@@ -33,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.data import native
 
 # images are held as uint8 (or dsprites' 0/1) and normalized per-batch in
@@ -135,7 +136,7 @@ class ImageFolderDataset:
             img = img.crop((left, top, left + self.size, top + self.size))
         else:
             img = img.resize((self.size, self.size), Image.BILINEAR)
-        native.counts.update(pil=1)
+        tracing.count("pil")
         return np.asarray(img, dtype=np.uint8)
 
     def _decode_u8(self, idx: np.ndarray) -> np.ndarray:

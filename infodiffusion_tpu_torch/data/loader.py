@@ -14,7 +14,8 @@ memory with ``non_blocking=True``, and are normalized there to [-1, 1]
 (``pm1_on_device``). ``INFODIFF_HOST_NORMALIZE=1`` normalizes on the host
 and ships f32 instead, as in the JAX package. Float data (latents) and
 dsprites' raw 0/1 pixels always ship f32. Attributes stay numpy arrays on
-the host. Batches are ``[B, H, W, C]`` tensors (``[B, d]`` for latents).
+the host. Batches are ``[B, H, W, C]`` tensors (``[B, d]`` for latents). The
+consumer's wait for each batch is the span ``data.wait`` (``tracing.py``).
 
 ``batch_size`` is the **global** batch. Under data parallelism ``rows``
 names the rows of each global batch this rank assembles
@@ -32,6 +33,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from infodiffusion_tpu_torch import tracing
 
 
 def pm1_on_device(u8: torch.Tensor) -> torch.Tensor:
@@ -162,7 +165,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("data.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

@@ -21,16 +21,16 @@ once never load a partial library. Nothing runs at import time.
 then reads False, as it does where neither build succeeds
 (``build_error()`` says why).
 
-``counts`` tallies what the library served in this process: images decoded
-(``"decoded"``, with ``"decode_s"``, the seconds of those calls), slots that
-failed (``"failed"``) and PNGs written (``"written"``); ``datasets.py``
-adds the images it decoded through PIL instead (``"pil"``: the retried
-slots, or every image where the library is off).
+The library counts what it served in the port's counter tally
+(``tracing.counts``): images decoded (``"decoded"``, with ``"decode_s"``,
+the seconds of those calls), slots that failed (``"failed"``) and PNGs
+written (``"written"``); ``datasets.py`` adds the images it decoded through
+PIL instead (``"pil"``: the retried slots, or every image where the library
+is off).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -42,11 +42,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from infodiffusion_tpu_torch import tracing
+
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "image_loader.cpp"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "image_loader"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
-
-counts: collections.Counter = collections.Counter()
 
 _LOCK = threading.Lock()
 _STATE = {"lib": None, "backend": None, "error": None, "build_seconds": 0.0}
@@ -196,8 +196,9 @@ class NativeImageBatcher:
             b, out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
             failed.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)))
         bad = np.flatnonzero(failed)
-        counts.update(decoded=b - len(bad), failed=len(bad),
-                      decode_s=time.perf_counter() - t0)
+        tracing.count("decoded", b - len(bad))
+        tracing.count("failed", len(bad))
+        tracing.count("decode_s", time.perf_counter() - t0)
         return out, bad
 
     def decode(self, idx: np.ndarray) -> np.ndarray:
@@ -233,5 +234,5 @@ def write_png_batch(paths: Sequence[str], batch_u8: np.ndarray,
         b, h, w, c, threads)
     if fails:
         raise IOError(f"native png writer: {fails}/{b} failed")
-    counts.update(written=b)
+    tracing.count("written", b)
     return True

@@ -52,6 +52,7 @@ from typing import Callable, Optional
 
 import torch
 
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.diffusion.schedule import (
     Schedule,
     ddim_reverse_step,
@@ -214,19 +215,22 @@ def strided_ddim_loop(
 ) -> torch.Tensor:
     """Fast DDIM-N over the subsampled grid. With eta 0 (the default) the
     trajectory draws nothing; otherwise ``noises`` [num_steps, *xT.shape]
-    injects the draws, or ``generator`` makes them."""
+    injects the draws, or ``generator`` makes them. Each step is the span
+    ``gen.ddim_step``."""
     x = xT
     ts, ts_prev = strided_timesteps(sched.T, num_steps, xT.device)
     for i in range(num_steps):
-        t, t_prev = ts[i], ts_prev[i]
-        eps = eps_fn(x, _full_t(x, t), a)
-        if eta == 0.0:
-            noise = torch.zeros_like(x)
-        else:
-            noise = (noises[i] if noises is not None else _noise(
-                x, generator))
-            noise = torch.where(t_prev < 0, torch.zeros_like(noise), noise)
-        x = strided_ddim_step(sched, x, t, t_prev, eps, noise, eta=eta)
+        with tracing.span("gen.ddim_step"):
+            t, t_prev = ts[i], ts_prev[i]
+            eps = eps_fn(x, _full_t(x, t), a)
+            if eta == 0.0:
+                noise = torch.zeros_like(x)
+            else:
+                noise = (noises[i] if noises is not None else _noise(
+                    x, generator))
+                noise = torch.where(t_prev < 0, torch.zeros_like(noise),
+                                    noise)
+            x = strided_ddim_step(sched, x, t, t_prev, eps, noise, eta=eta)
     return x
 
 
@@ -539,18 +543,21 @@ class LatentDiffusionProcess:
     @torch.no_grad()
     def sampling(self, generator: Optional[torch.Generator] = None,
                  sampling_number: int = 16, xT=None, noises=None):
-        """``noises`` [T, B, a_dim] injects the per-step draws."""
+        """``noises`` [T, B, a_dim] injects the per-step draws. The
+        trajectory is the span ``gen.latent_prior``."""
         if xT is None:
             xT = torch.randn((sampling_number, self.cfg.a_dim),
                              generator=generator, device=self.device)
-        if self.route != "k4":
-            return sample_loop(self._eps_fn(), self.sched, xT, generator,
-                               deterministic=self.cfg.deterministic,
-                               noises=noises)
-        return latent_trajectory(
-            self.params, self.sched, xT, generator,
-            deterministic=self.cfg.deterministic, noises=noises,
-        )
+        with tracing.span("gen.latent_prior"):
+            if self.route != "k4":
+                return sample_loop(self._eps_fn(), self.sched, xT,
+                                   generator,
+                                   deterministic=self.cfg.deterministic,
+                                   noises=noises)
+            return latent_trajectory(
+                self.params, self.sched, xT, generator,
+                deterministic=self.cfg.deterministic, noises=noises,
+            )
 
     @torch.no_grad()
     def reverse_sampling(self, x0: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,10 @@ the reference's shell workflows translate one to one through
   its dataset, or the latent prior over the latents ``save_latent``
   wrote), with ``--resume``, checkpoint retention, background saves,
   SIGTERM and ``INFODIFF_PREEMPT_AFTER_STEPS`` preemption, metrics
-  fetched every ``INFODIFF_LOG_EVERY`` steps only and
-  ``INFODIFF_PROFILE=<dir>`` (steps 10..20, a Chrome trace);
+  fetched every ``INFODIFF_LOG_EVERY`` steps only,
+  ``INFODIFF_PROFILE=<dir>`` (steps 10..20, a Chrome trace with the
+  port's spans) and ``INFODIFF_TRACE=1`` (the spans and counters of
+  ``tracing.py`` at each fetch, as ``trace/...`` metrics);
 - ``eval``, ``eval_fid``, ``latent_quality``, ``plot_latent``,
   ``disentangle``, ``save_latent``, ``interpolate``,
   ``attr_classification``: :func:`evaluate`;
@@ -57,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.config import Config, generate_exp_string
 from infodiffusion_tpu_torch.data import DataLoader, LatentDataset, get_dataset
 from infodiffusion_tpu_torch.data import native
@@ -523,6 +526,7 @@ class _StepProfile:
 
 
 def _start_profiler(device):
+    """A started capture, with the port's spans on until it stops."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -530,17 +534,30 @@ def _start_profiler(device):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
+    tracing.enable()
     return prof
 
 
 def _stop_profiler(prof, out_dir: str, device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    tracing.disable()
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"Saved profiler trace to {path}")
+
+
+def _trace_scalars(snap: dict) -> dict:
+    """A ``tracing.snapshot()`` as metrics: each span's count and mean ms,
+    and each counter."""
+    out = {}
+    for name, rec in snap["spans"].items():
+        out[f"{name}.count"] = rec["count"]
+        out[f"{name}.mean_ms"] = rec["total_s"] / rec["count"] * 1e3
+    out.update(snap["counters"])
+    return out
 
 
 def _fetch(metrics: dict) -> dict:
@@ -578,6 +595,8 @@ def _train_loop(cfg, loader, state, step_fn, start, writer, ckpt_root,
     log_every = int(os.environ.get("INFODIFF_LOG_EVERY", "50"))
     preempt_after = int(os.environ.get("INFODIFF_PREEMPT_AFTER_STEPS", "0"))
     profile = _StepProfile(device)
+    if tracing.exported:
+        tracing.reset()
     host_steps = 0
     start_epoch, start_batch = start
     try:
@@ -615,6 +634,10 @@ def _train_loop(cfg, loader, state, step_fn, start, writer, ckpt_root,
                     total += vals["loss"]
                     count += 1
                     writer.write(state.step, vals)
+                    if tracing.exported:
+                        writer.write(state.step, _trace_scalars(
+                            tracing.snapshot()), prefix="trace")
+                        tracing.reset()
             if last_metrics is not None and count == 0:
                 total += _fetch(last_metrics)["loss"]
                 count += 1

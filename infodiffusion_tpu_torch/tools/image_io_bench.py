@@ -35,7 +35,7 @@ from pathlib import Path
 
 import numpy as np
 
-from infodiffusion_tpu_torch import imaging
+from infodiffusion_tpu_torch import imaging, tracing
 from infodiffusion_tpu_torch.data import native
 from infodiffusion_tpu_torch.data.datasets import ImageFolderDataset
 
@@ -92,9 +92,9 @@ def decode_rates(files, batch: int, repeats: int) -> dict:
     n = sum(len(b) for b in batches)
     out = {"images": n, "batch": batch, "backend": native.backend(),
            "pil_threads": threads}
-    before = native.counts["pil"]
+    before = tracing.counts["pil"]
     run_native()  # builds the library, warms the page cache
-    if native.counts["pil"] != before:
+    if tracing.counts["pil"] != before:
         raise AssertionError("the native batcher sent images to PIL")
     sides = {"native": run_native}
     pool = None

@@ -37,6 +37,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.data import native
 from infodiffusion_tpu_torch.data.datasets import ImageFolderDataset
 from infodiffusion_tpu_torch.data.loader import DataLoader
@@ -123,11 +124,11 @@ def measure_decode(paths, limit: int, batch: int = 256) -> Dict:
     if not native.native_available():
         raise RuntimeError(f"the native image library is unavailable:\n"
                            f"{native.build_error()}")
-    pil_before = native.counts["pil"]
+    pil_before = tracing.counts["pil"]
     rate = _decode_rate(paths, n, batch)
-    if native.counts["pil"] != pil_before:
+    if tracing.counts["pil"] != pil_before:
         raise RuntimeError(f"the native batcher left "
-                           f"{native.counts['pil'] - pil_before} files to PIL")
+                           f"{tracing.counts['pil'] - pil_before} files to PIL")
     m = min(PIL_ROW, n)
     with env_set({"INFODIFF_DISABLE_NATIVE": "1"}):  # the explicit PIL path
         pil_rate = _decode_rate(paths, m, m)

@@ -8,16 +8,18 @@ step, so training is reproducible from (seed, step); the bits differ
 from JAX's by design. ``loss_and_grads`` is the step's first half on its
 own, so a test can run it with injected draws and ``deterministic=True``.
 The step updates the state in place and returns it, where the jitted JAX
-step returns a new one.
+step returns a new one. Its three phases are the spans ``train.forward``,
+``train.backward`` and ``train.optimizer`` (``tracing.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.models.wrappers import Rngs
 from infodiffusion_tpu_torch.parallel.batch import batch_scope
 from infodiffusion_tpu_torch.train.state import ClipAdamW, TrainState
@@ -31,16 +33,26 @@ def step_rngs(seed: int, step: int, device) -> Rngs:
 
 
 def loss_and_grads(model, batch: torch.Tensor, curr_epoch=0,
+                   seed_step: Optional[Tuple[int, int]] = None,
+                   reduce: Optional[Callable[[List], List]] = None,
                    **loss_kwargs) -> Tuple[torch.Tensor, Dict, List]:
     """(loss, aux, grads) of ``model.loss_fn(batch, curr_epoch,
     **loss_kwargs)``; ``grads`` holds one tensor per parameter in
     ``model.named_parameters()`` order, zeros where the parameter takes no
-    part in the loss (as JAX's gradient has them)."""
+    part in the loss (as JAX's gradient has them). ``seed_step`` (seed,
+    step) draws with ``step_rngs``; ``reduce`` maps the gradients (the
+    layout's sum over ranks) inside the backward's span."""
     params = list(model.parameters())
-    loss, aux = model.loss_fn(batch, curr_epoch, **loss_kwargs)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
+    with tracing.span("train.forward"):
+        if seed_step is not None:
+            loss_kwargs["rngs"] = step_rngs(*seed_step, batch.device)
+        loss, aux = model.loss_fn(batch, curr_epoch, **loss_kwargs)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        if reduce is not None:
+            grads = reduce(grads)
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -57,26 +69,28 @@ def make_train_step(model, tx: ClipAdamW, ema_decay: float = 0.0,
     one-process step."""
 
     def step_fn(state: TrainState, batch: torch.Tensor, curr_epoch=0):
-        rngs = step_rngs(state.seed, state.step, batch.device)
+        seed_step = (state.seed, state.step)
         if layout is None:
             loss, aux, grads = loss_and_grads(model, batch, curr_epoch,
-                                              deterministic=False, rngs=rngs)
-            grad_norm = tx.update(state.params, grads, state.opt_state)
+                                              seed_step, deterministic=False)
         else:
             layout.unshard(state)
             try:
                 with batch_scope(layout.rows(batch.shape[0])):
                     loss, aux, grads = loss_and_grads(
-                        model, batch, curr_epoch, deterministic=False,
-                        rngs=rngs)
+                        model, batch, curr_epoch, seed_step,
+                        lambda g: layout.reduce_grads(state, g),
+                        deterministic=False)
             finally:
                 layout.reshard(state)
-            grads = layout.reduce_grads(state, grads)
+        with tracing.span("train.optimizer"):
+            norm = (None if layout is None
+                    else layout.global_norm(state, grads))
             grad_norm = tx.update(state.params, grads, state.opt_state,
-                                  norm=layout.global_norm(state, grads))
-        del grads
-        if ema_decay > 0.0 and state.ema_params is not None:
-            update_ema(state.ema_params, state.params, ema_decay)
+                                  norm=norm)
+            del grads
+            if ema_decay > 0.0 and state.ema_params is not None:
+                update_ema(state.ema_params, state.params, ema_decay)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm, **aux}
 

@@ -17,7 +17,7 @@ import pytest
 
 from infodiffusion_tpu.data import native as jnative
 from infodiffusion_tpu.data.datasets import ImageFolderDataset as JFolder
-from infodiffusion_tpu_torch import imaging
+from infodiffusion_tpu_torch import imaging, tracing
 from infodiffusion_tpu_torch.data import native
 from infodiffusion_tpu_torch.data.datasets import ImageFolderDataset
 
@@ -161,14 +161,14 @@ def test_png_writer_roundtrip(tmp_path):
     from PIL import Image
 
     rng = np.random.RandomState(0)
-    before = native.counts["written"]
+    before = tracing.counts["written"]
     rgb = rng.randint(0, 256, (6, 16, 12, 3), dtype=np.uint8)
     paths = [str(tmp_path / f"w{i}.png") for i in range(6)]
     assert native.write_png_batch(paths, rgb)
     grey = rng.randint(0, 256, (2, 8, 8, 1), dtype=np.uint8)
     gpaths = [str(tmp_path / f"g{i}.png") for i in range(2)]
     assert native.write_png_batch(gpaths, grey)
-    assert native.counts["written"] == before + 8
+    assert tracing.counts["written"] == before + 8
     for p, want in zip(paths, rgb):
         np.testing.assert_array_equal(np.asarray(Image.open(p)), want)
         np.testing.assert_array_equal(imaging.read_image_rgb(p), want)
@@ -189,9 +189,9 @@ def test_cmyk_retried_through_pil(tmp_path):
     Image.fromarray(rgb).convert("CMYK").save(p, quality=95)
     good = os.path.join(FIXTURES, "000003.jpg")
     kw = dict(files=[good, p], size=64, center_crop=False)
-    before = native.counts["pil"]
+    before = tracing.counts["pil"]
     got, _ = ImageFolderDataset(**kw).get_batch_u8(np.arange(2))
-    assert native.counts["pil"] == before + 1  # the retried slot only
+    assert tracing.counts["pil"] == before + 1  # the retried slot only
     want, _ = JFolder(**kw).get_batch_u8(np.arange(2))
     np.testing.assert_array_equal(got, want)
     assert got[1].mean() > 10  # real pixels, not a zero-filled slot
@@ -278,11 +278,11 @@ def test_disabled_library_takes_pil(tmp_path, monkeypatch):
     assert "INFODIFF_DISABLE_NATIVE" in native.build_error()
     assert not native.write_png_batch([str(tmp_path / "x.png")],
                                       np.zeros((1, 4, 4, 3), np.uint8))
-    before = native.counts["pil"]
+    before = tracing.counts["pil"]
     got, _ = ImageFolderDataset(files=files, size=64,
                                 center_crop=True).get_batch_u8(np.arange(3))
     np.testing.assert_array_equal(got, _pil(files, 64, True, False))
-    assert native.counts["pil"] == before + 3
+    assert tracing.counts["pil"] == before + 3
 
 
 def test_unbuilt_library_beside_a_card_raises(tmp_path, monkeypatch):

@@ -12,7 +12,7 @@ import sys
 import numpy as np
 import pytest
 
-from infodiffusion_tpu_torch.data import native
+from infodiffusion_tpu_torch import tracing
 from infodiffusion_tpu_torch.tools import pipeline_rehearsal
 from infodiffusion_tpu_torch.tools import repr_learning_demo as demo
 
@@ -37,12 +37,12 @@ def test_corpus_is_the_jax_tools_bytes(tmp_path):
 
 def test_decode_through_the_libjpeg_build(tmp_path):
     paths = pipeline_rehearsal.generate_corpus(str(tmp_path), 64)
-    pil = native.counts["pil"]
+    pil = tracing.counts["pil"]
     row = pipeline_rehearsal.measure_decode(paths, 64, batch=64)
     assert row["native_backend"] == "libjpeg"
     assert row["decode_imgs"] == 64 and row["pil_decode_imgs"] == 64
     # the native rows decoded every file; the comparison row used PIL
-    assert native.counts["pil"] - pil == 2 * 64  # its warm-up and its run
+    assert tracing.counts["pil"] - pil == 2 * 64  # its warm-up and its run
     assert row["native_decode_imgs_per_sec"] > 0
     assert row["pil_decode_imgs_per_sec"] > 0
 
